@@ -27,6 +27,7 @@ from typing import Any
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 Array = jax.Array
 
@@ -55,7 +56,8 @@ def euler_matrix(euler: Array) -> Array:
     rx = jnp.array([[1, 0, 0], [0, ca, -sa], [0, sa, ca]])
     ry = jnp.array([[cb, 0, sb], [0, 1, 0], [-sb, 0, cb]])
     rz = jnp.array([[cc, -sc, 0], [sc, cc, 0], [0, 0, 1]])
-    return rz @ ry @ rx
+    hi = lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(rz, ry, precision=hi), rx, precision=hi)
 
 
 def pixel_grid(width: int, height: int,
@@ -92,7 +94,9 @@ def generate_rays(cam: Camera, width: int, height: int, ys: Array, xs: Array,
         [x_render, y_render, -jnp.ones_like(x_render)], axis=-1
     )
     rot = euler_matrix(cam.euler)
-    d = d_cam @ rot.T
+    # full f32: a GPU may run a default-precision f32 product in TF32
+    # (~3 decimal digits), coarser than one flagship pixel (7.8e-4 rad)
+    d = jnp.matmul(d_cam, rot.T, precision=lax.Precision.HIGHEST)
     d = d / jnp.linalg.norm(d, axis=-1, keepdims=True)
     o = jnp.broadcast_to(cam.position, d.shape)
     return o, d

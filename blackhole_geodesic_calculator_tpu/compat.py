@@ -3,7 +3,7 @@
 The reference render engines drive an external numerical backend,
 ``curvedpy`` (reference README.md:23-24,174-211); its API was reconstructed
 from every call site (SURVEY.md §2.3).  This module provides drop-in
-TPU-native equivalents so code written against the reference's backend runs
+batched JAX equivalents so code written against the reference's backend runs
 unchanged on this framework -- each class documents the reference call site
 it serves.  Inputs/outputs are numpy-friendly (lists and ndarrays), matching
 how the Blender engines call curvedpy; internally everything is one jitted
@@ -85,7 +85,7 @@ class GeodesicIntegratorSchwarzschild:
     ``calc_trajectory(k0_xyz, x0_xyz, max_step, curve_end, nr_points_curve)``
     (RelativisticRenderEngine.py:293-308).  Here ``calc_trajectory`` accepts
     a single ray OR a batch (leading dims broadcast) and runs one jitted
-    program -- the per-pixel scipy solve becomes a batched TPU solve.
+    program -- the per-pixel scipy solve becomes one batched device solve.
     """
 
     def __init__(self, mass=0.5, time_like=False, verbose=False, spin=None,

@@ -3,7 +3,7 @@
 The reference's durability story (SURVEY.md §5): progressive row flushing
 into Blender (crash loses the current rows) and Gen-3's pickled precomputed
 cameras as durable checkpoints of the expensive phase
-(RelativisticRenderEngineCamEdition.py:215-221).  TPU-native equivalents:
+(RelativisticRenderEngineCamEdition.py:215-221).  Standalone equivalents:
 
 * ray fields: ``compat.RelativisticCamera.save/load`` (npz, no pickle);
 * training state (inverse rendering): orbax-backed pytree checkpoints of

@@ -5,7 +5,7 @@ properties registered on the Blender Scene (PROPS,
 RelativisticRenderEngine.py:504-517, LimitedRelativisticRenderEngine.py:
 486-506), edited in a UI panel and read back in render().  Here the same
 namespace is a JSON-serializable dataclass: every reference property has a
-field with the same name and default, plus the TPU-native additions
+field with the same name and default, plus this framework's additions
 (integrator/backend/sharding).  Sentinel convention preserved: -1 = off
 (marks, max steps; RelativisticRenderEngine.py:57-62,106-118).
 """
@@ -92,24 +92,21 @@ class SceneConfig:
     lights: list = dataclasses.field(default_factory=list)
     light_intensity: float = 10.0
 
-    # -- output / TPU-native ----------------------------------------------
+    # -- output / device --------------------------------------------------
     width: int = 256
     height: int = 256
     n_steps: int = 512
     backend: str = "auto"
-    # 'rk4' (fixed-step, Pallas-accelerated) or 'dopri' (adaptive
-    # Dormand-Prince 5(4), the reference's scipy-RK45 twin --
+    # 'rk4' (fixed-step, served by the fused GPU kernel) or 'dopri'
+    # (adaptive Dormand-Prince 5(4), the reference's scipy-RK45 twin --
     # /root/reference/README.md:196-211; 'max_integration_step' bounds the
     # adaptive step exactly like the reference passes max_step to
     # solve_ivp, RelativisticRenderEngine.py:293).  'dopri' + mode='scan'
     # is differentiable (exact discrete adjoint of the adaptive scheme);
-    # mode='while' is the cheaper forward-only twin.
-    # PERFORMANCE CAVEAT: differentiable 'dopri' is fast ONLY on TPU, where
-    # it lowers to the in-kernel checkpointed adjoint (15.3M rays/s fwd+bwd
-    # on v5e).  On CPU/GPU it falls back to the XLA remat scan at ~52k
-    # rays/s (measured, BENCH_SUITE.json: ~300x slower) -- fine for tests
-    # and small fits, impractical for full-frame gradients; prefer
-    # method='rk4' off-TPU.
+    # mode='while' is the cheaper forward-only twin.  Both dopri forms run
+    # as XLA loops that advance every ray until the slowest one finishes,
+    # and the differentiable one pays a remat scan over every trip: prefer
+    # method='rk4' for full-frame gradients.
     method: str = "rk4"
     mode: str = "scan"
     rtol: float = 1e-5

@@ -3,9 +3,9 @@
 flat          -- Minkowski validation metric (reference metric='flat').
 schwarzschild -- reference default spacetime, two Cartesian charts.
 kerr          -- spinning hole, Kerr-Schild form (reference Gen-3 `a` param).
-surrogate     -- learned (MLP, MXU/bf16) scattering-map fast path, the
+surrogate     -- learned (MLP, f32/bf16) scattering-map fast path, the
                  reference's planned 'Tensorflow model' milestone
-                 (README.md:237), trained on TPU against the Pallas
+                 (README.md:237), trained on the device against the
                  integrator.
 """
 

@@ -10,15 +10,17 @@ enforces that.
 from __future__ import annotations
 
 import jax.numpy as jnp
+import numpy as np
 
 from .metric import Metric
 
-ETA = jnp.diag(jnp.asarray([-1.0, 1.0, 1.0, 1.0]))
+# numpy constant: importing the package must not initialize a backend
+ETA = np.diag(np.asarray([-1.0, 1.0, 1.0, 1.0], np.float32))
 
 
 def _g_flat(x4):
     del x4
-    return ETA
+    return jnp.asarray(ETA)
 
 
 def flat_metric() -> Metric:

@@ -3,7 +3,7 @@
 The reference derives metrics and Christoffel symbols symbolically with sympy
 (curvedpy ``SW.g`` / ``SW.gam_y``; see /root/reference/README.md:174-186 and the
 Christoffel definition at README.md:133-135).  Here the same contract is provided
-TPU-natively: a metric is a pure function ``g(x4) -> (4, 4)`` and the Christoffel
+natively in JAX: a metric is a pure function ``g(x4) -> (4, 4)`` and the Christoffel
 symbols are obtained by *forward-mode autodiff of the metric itself* --
 
     Gamma^sigma_{mu nu} = 1/2 g^{sigma rho} (d_mu g_{nu rho} + d_nu g_{rho mu}
@@ -34,6 +34,9 @@ import jax
 import jax.numpy as jnp
 
 Array = jax.Array
+# Tensor contractions in full f32: a GPU may otherwise run f32 products in
+# TF32 (~3 decimal digits).
+_HI = jax.lax.Precision.HIGHEST
 
 
 @jax.tree_util.register_pytree_node_class
@@ -67,7 +70,7 @@ class Metric:
 
     def g_inv(self, x4: Array) -> Array:
         """Contravariant metric g^{mu nu}; analytic when available (important
-        for f32 accuracy on TPU), generic linear-solve fallback otherwise."""
+        for f32 accuracy), generic linear-solve fallback otherwise."""
         if self.g_inv_fn is not None:
             return self.g_inv_fn(x4, *self.params)
         return jnp.linalg.inv(self.g(x4))
@@ -75,7 +78,7 @@ class Metric:
     def christoffel(self, x4: Array) -> Array:
         """Gamma^sigma_{mu nu} with shape (4, 4, 4), indices [sigma, mu, nu].
 
-        Derived by forward-mode AD of ``g`` -- the TPU-native equivalent of the
+        Derived by forward-mode AD of ``g`` -- the batched equivalent of the
         reference's sympy derivation (README.md:133-135).
         """
         g_inv = self.g_inv(x4)
@@ -85,17 +88,17 @@ class Metric:
         sym = 0.5 * (
             jnp.einsum("nrm->mnr", dg) + jnp.einsum("rmn->mnr", dg) - dg
         )
-        return jnp.einsum("sr,mnr->smn", g_inv, sym)
+        return jnp.einsum("sr,mnr->smn", g_inv, sym, precision=_HI)
 
     def geodesic_rhs(self, x4: Array, k4: Array) -> tuple[Array, Array]:
         """(dx4/dlam, dk4/dlam) -- the 8 first-order ODEs of README.md:198-209."""
         gamma = self.christoffel(x4)
-        dk = -jnp.einsum("smn,m,n->s", gamma, k4, k4)
+        dk = -jnp.einsum("smn,m,n->s", gamma, k4, k4, precision=_HI)
         return k4, dk
 
     def norm_sq(self, x4: Array, k4: Array) -> Array:
         """g_{mu nu} k^mu k^nu -- exactly 0 along a null geodesic (invariant)."""
-        return jnp.einsum("mn,m,n->", self.g(x4), k4, k4)
+        return jnp.einsum("mn,m,n->", self.g(x4), k4, k4, precision=_HI)
 
     def null_k_t(self, x4: Array, k3: Array) -> Array:
         """Future-directed k^t making (k^t, k3) null at x4.
@@ -105,8 +108,8 @@ class Metric:
         """
         g = self.g(x4)
         a = g[0, 0]
-        b = 2.0 * jnp.dot(g[0, 1:], k3)
-        c = jnp.dot(k3, g[1:, 1:] @ k3)
+        b = 2.0 * jnp.dot(g[0, 1:], k3, precision=_HI)
+        c = jnp.dot(k3, jnp.dot(g[1:, 1:], k3, precision=_HI), precision=_HI)
         d2 = b * b - 4.0 * a * c
         # guarded sqrt keeps the jacobian finite when clamped (see
         # ops/integrate._sphere_events)

@@ -7,7 +7,7 @@ to interpolation (``render/limited.py:SurrogateTable`` — the shipped approx
 mode).  **Kerr breaks that symmetry**: the sphere-of-influence scattering
 map ``(entry loc, dir) -> (exit loc, dir, captured)`` genuinely depends on
 four irreducible degrees of freedom, so no low-dimensional table exists.
-Here that map is LEARNED: a small MLP trained on TPU against the Pallas
+Here that map is LEARNED: a small MLP trained on the device against the
 integrator itself — every optimizer step draws a fresh random ray batch and
 labels it with the real integrator in the same jitted program (no stored
 dataset, no possibility of overfitting), exactly the "collisions with the
@@ -28,10 +28,10 @@ Canonical frame: entry azimuth rotated to phi = 0, entry z reflected to
 z >= 0.  Equivariance of the full ``trace`` is then an architectural
 guarantee (tested in tests/test_surrogate.py), not a learned property.
 
-Inference is a handful of dense ``bfloat16`` matmuls with f32 accumulation
-— the one workload in this framework that rides the MXU systolic array
-rather than the VPU.  The surrogate exposes the same ``.trace(entry, d)``
-protocol as ``SurrogateTable``, so it drops straight into the Gen-1 hybrid
+Inference is a handful of dense matmuls (float32, or ``bfloat16`` with f32
+accumulation) -- the one workload in this framework that can use the
+matrix units rather than plain elementwise arithmetic.  The surrogate
+exposes the same ``.trace(entry, d)`` protocol as ``SurrogateTable``, so it drops straight into the Gen-1 hybrid
 renderer (``render_limited_rays(..., table=...)``) and into the compat
 layer (``compat.ApproxKerrGeodesic.generatedRayTracer``, mirroring the
 reference surrogate call at
@@ -67,14 +67,14 @@ class SurrogateConfig:
     exit_tolerance: float = 0.1  # exit shell thickness (ref :273-278)
     # Matmul precision: 'f32' (accurate default -- bf16's ~4e-3 relative
     # rounding on the residual head is itself a multi-pixel error floor at
-    # flagship resolution) or 'bf16' (the fastest MXU path, preview-grade).
+    # flagship resolution) or 'bf16' (the fastest path, preview-grade).
     precision: str = "f32"
     # Integrator budget used to label training batches (and to evaluate):
     n_steps: int = 512
     dt: float = 0.05
     lam_max: float = 200.0
     dt_boost: float = 4.0
-    backend: str = "auto"       # Pallas on TPU, XLA scan elsewhere
+    backend: str = "auto"       # RK4 kernel on a GPU, XLA scan elsewhere
 
     @property
     def n_features(self) -> int:
@@ -100,6 +100,12 @@ def _rz(phi):
     ], -2)
 
 
+def _rotate(rot, v):
+    """Per-ray 3x3 rotation, in full f32 (not TF32 on a GPU)."""
+    return jnp.einsum("...ij,...j->...i", rot, v,
+                      precision=jax.lax.Precision.HIGHEST)
+
+
 def canonicalize(entry, d):
     """Map (entry, d) into the symmetry-canonical frame.
 
@@ -108,8 +114,8 @@ def canonicalize(entry, d):
     """
     phi = jnp.arctan2(entry[..., 1], entry[..., 0])
     rot = _rz(-phi)
-    entry_c = jnp.einsum("...ij,...j->...i", rot, entry)
-    d_c = jnp.einsum("...ij,...j->...i", rot, d)
+    entry_c = _rotate(rot, entry)
+    d_c = _rotate(rot, d)
     flip = entry_c[..., 2] < 0.0
     sgn = jnp.where(flip, -1.0, 1.0)
     entry_c = entry_c.at[..., 2].multiply(sgn)
@@ -121,7 +127,7 @@ def decanonicalize(v, phi, flip):
     """Undo ``canonicalize`` on a canonical-frame vector field ``v``."""
     sgn = jnp.where(flip, -1.0, 1.0)
     v = v.at[..., 2].multiply(sgn)
-    return jnp.einsum("...ij,...j->...i", _rz(phi), v)
+    return _rotate(_rz(phi), v)
 
 
 def _features(entry_c, d_c, R):
@@ -178,10 +184,10 @@ def init_params(key, cfg: SurrogateConfig):
 
 
 def mlp_apply(params, feats, precision: str = "f32"):
-    """Dense MXU stack: ``precision='f32'`` runs full float32 (3-pass MXU,
-    the accurate default -- bf16 activations round the residual head at
-    ~4e-3 relative, itself a multi-pixel error floor); ``'bf16'`` is the
-    fastest single-pass MXU path for previews."""
+    """Dense stack: ``precision='f32'`` runs full float32 (HIGHEST, not
+    TF32 -- the accurate default; bf16 activations round the residual head
+    at ~4e-3 relative, itself a multi-pixel error floor); ``'bf16'`` is the
+    fastest path, for previews."""
     if precision == "bf16":
         h = feats.astype(jnp.bfloat16)
         for w, b in params[:-1]:
@@ -367,7 +373,7 @@ def surrogate_loss(params, cfg: SurrogateConfig, R, entry, d,
     rot = _rz(-phi)
 
     def to_canon(v):
-        v = jnp.einsum("...ij,...j->...i", rot, v)
+        v = _rotate(rot, v)
         return v.at[..., 2].multiply(sgn)
 
     # Residual targets relative to the straight-line chord baseline
@@ -401,7 +407,7 @@ def train_surrogate(key, mass=0.5, spin=0.45, cfg: SurrogateConfig | None = None
     """Train a NeuralSurrogate against the live integrator.
 
     One jitted step = sample a fresh ray batch -> label it with the real
-    (Pallas on TPU) integrator under ``stop_gradient`` -> one adamw update
+    (RK4 kernel on a GPU) integrator under ``stop_gradient`` -> one adamw update
     on the MLP.  Infinite fresh data; the integrator IS the dataset.
 
     Returns (NeuralSurrogate, history dict of per-log losses)."""

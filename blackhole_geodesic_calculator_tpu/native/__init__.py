@@ -8,7 +8,7 @@ and Blender's C++ for image plumbing (RelativisticRenderEngine.py:78-90,
 
 * ``integrate_batch`` / ``trajectory`` -- a multithreaded double-precision
   adaptive Dormand-Prince 5(4) geodesic integrator: the f64 validation
-  oracle for the TPU Pallas/XLA paths and the trajectory backend of the
+  oracle for the kernel/XLA device paths and the trajectory backend of the
   curvedpy-compat API.
 * ``write_png`` / ``read_png`` / ``write_pfm`` / ``read_pfm`` -- image IO.
 * ``FrameWriter`` -- an async thread-pool PNG pipeline that overlaps host
@@ -437,9 +437,8 @@ class FrameWriter:
     def submit(self, path: str, frame: np.ndarray, srgb: bool = False):
         """Queue a frame.  float frames are quantized in the worker; uint8
         frames (e.g. quantized ON DEVICE by render.render_image_u8 -- a 4x
-        smaller device->host transfer, which dominates animation frame
-        time on tunneled stacks) are encoded as-is (``srgb`` must then be
-        pre-applied)."""
+        smaller device->host transfer) are encoded as-is (``srgb`` must
+        then be pre-applied)."""
         arr = np.asarray(frame)
         if arr.ndim != 3 or arr.shape[2] not in (3, 4):
             raise ValueError(f"expected (H, W, 3|4), got {arr.shape}")

@@ -8,7 +8,7 @@
  * framework's native equivalent of both:
  *
  *   1. a double-precision adaptive Dormand-Prince 5(4) geodesic integrator
- *      (the f64 validation oracle for the TPU Pallas/XLA paths, and the
+ *      (the f64 validation oracle for the kernel/XLA device paths, and the
  *      fast CPU path for trajectory extraction / curvedpy-compat calls),
  *      multithreaded over the ray batch;
  *   2. PNG (zlib) + PFM image encode/decode;

@@ -9,8 +9,8 @@
  * event/termination taxonomy as ops/integrate.py (capture / escape / affine
  * budget / disk crossing / sphere hit / error).
  *
- * Used from Python (ctypes) as (a) the f64 validation oracle the TPU
- * Pallas/XLA paths are tested against, (b) the trajectory-polyline backend
+ * Used from Python (ctypes) as (a) the f64 validation oracle the
+ * kernel/XLA device paths are tested against, (b) the trajectory-polyline backend
  * for the curvedpy-compat API, multithreaded over rays.
  */
 #include "bgc.h"

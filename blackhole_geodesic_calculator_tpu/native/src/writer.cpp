@@ -5,7 +5,7 @@
  * quantize, PNG encode, disk write -- is comparable to the device render
  * time at small sizes.  This thread pool takes a copied framebuffer off the
  * render thread so device compute and host IO fully overlap (the
- * TPU-native counterpart of the reference's progressive RenderResult
+ * counterpart of the reference's progressive RenderResult
  * flushing, RelativisticRenderEngine.py:158-168).
  */
 #include "bgc.h"

@@ -1,10 +1,10 @@
-"""Batched null-geodesic right-hand sides -- the TPU hot path.
+"""Batched null-geodesic right-hand sides -- the integrator hot path.
 
 The reference solves the geodesic equation per ray with scipy ``solve_ivp`` on
 8 first-order ODEs in (x^beta, k^alpha) (reference README.md:196-211, called
 once per pixel per sample at
 /root/reference/raytracer/RelativisticRenderEngine.py:293-294).  Here the same
-physics is reformulated for TPU:
+physics is reformulated for batched accelerator execution:
 
 * **Hamiltonian form with conserved energy.**  For any Kerr-Schild metric
   g = eta + 2H l l (covering flat H=0, Schwarzschild H=M/r and Kerr), the

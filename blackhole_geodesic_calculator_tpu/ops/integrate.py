@@ -99,8 +99,8 @@ class IntegratorConfig:
     dt: float = 0.1
     method: str = "rk4"          # 'rk4' | 'dopri'
     mode: str = "scan"           # 'scan' (differentiable) | 'while' (fast fwd)
-    # 'auto': fused Pallas kernels on TPU (forward + checkpointed-adjoint
-    # backward), XLA scan elsewhere; 'scan' / 'pallas' force a path.
+    # 'auto': the fused RK4 kernel (ops/pallas_kernel.py) on a GPU, the XLA
+    # scan elsewhere; 'scan' forces XLA, 'pallas' forces the kernel (GPU only).
     backend: str = "auto"
     remat_segment: int = 0       # 0 -> sqrt(n_steps); 1 -> no remat
     # Per-ray radius-proportional step growth: far from the hole curvature
@@ -113,16 +113,6 @@ class IntegratorConfig:
     dt_boost: float = 8.0
     dt_boost_r_ref: float = 0.0  # 0 -> 6 M (twice the photon sphere)
     dt_power: float = 1.0
-    # Pallas tile ordering: 'cost' groups rays of similar integration cost
-    # (impact-parameter proxy) into the same kernel tile so cheap tiles
-    # freeze early (in-kernel early exit), at VMEM-row (128-ray) granularity
-    # so the permute is a cheap row gather, not a serial per-ray one.
-    # Outputs are unpermuted -- results are bit-identical to 'none'.
-    # Resolves the shuffle-vs-early-exit tension of SURVEY.md §2.2: shards
-    # stay round-robin balanced (parallel/render.py) while each device's
-    # tiles re-sort locally.  Measured on TPU v5e, 1024^2 flagship:
-    # forward 13.1 -> 9.9 ms, fwd+bwd 58.3 -> 42.0 ms (-24% / -28%).
-    tile_order: str = "cost"    # 'cost' | 'none'
     # Dormand-Prince controls (parity with scipy solve_ivp defaults rtol=1e-3,
     # atol=1e-6; reference passes max_step through, RelativisticRenderEngine.py:293)
     rtol: float = 1e-5
@@ -341,15 +331,19 @@ def _fixed_step(env: GeodesicEnv, cfg: IntegratorConfig, s: RayState) -> RayStat
     return _apply_events(env, s, x1, p1, dt)
 
 
+def _segments(cfg: IntegratorConfig):
+    """(seg, n_full, rem): remat segment length, full segments, tail steps."""
+    seg = cfg.remat_segment or max(1, int(cfg.n_steps**0.5))
+    return seg, cfg.n_steps // seg, cfg.n_steps % seg
+
+
 def integrate_fixed(env: GeodesicEnv, s0: RayState, cfg: IntegratorConfig) -> RayState:
     """RK4 scan -- differentiable, remat-checkpointed in segments.
 
     Runs EXACTLY cfg.n_steps steps: full remat segments plus an un-remated
     tail of n_steps % seg (a ceil'd segment count would silently
     over-integrate every ray whenever seg does not divide n_steps)."""
-    seg = cfg.remat_segment or max(1, int(cfg.n_steps**0.5))
-    n_full = cfg.n_steps // seg
-    rem = cfg.n_steps % seg
+    seg, n_full, rem = _segments(cfg)
 
     def body(s, _):
         return _fixed_step(env, cfg, s), None
@@ -482,9 +476,7 @@ def integrate_adaptive_scan(env: GeodesicEnv, s0: RayState,
         )
         return (s, h), None
 
-    seg = cfg.remat_segment or max(1, int(cfg.n_steps**0.5))
-    n_full = cfg.n_steps // seg
-    rem = cfg.n_steps % seg
+    seg, n_full, rem = _segments(cfg)
 
     def one_segment(carry, _):
         carry, _ = lax.scan(body, carry, None, length=seg)
@@ -499,38 +491,33 @@ def integrate_adaptive_scan(env: GeodesicEnv, s0: RayState,
     return carry[0]
 
 
-def _use_pallas(env, cfg: IntegratorConfig) -> bool:
-    if cfg.backend == "pallas":
-        return True
-    if cfg.backend != "auto":
+def _use_pallas(cfg: IntegratorConfig) -> bool:
+    """Whether the RK4 kernel serves ``cfg``: 'auto' picks it on a GPU;
+    'pallas' demands it and raises where there is no GPU to compile for."""
+    if cfg.backend not in ("auto", "scan", "pallas"):
+        raise ValueError(f"unknown backend {cfg.backend!r}")
+    if cfg.backend == "scan" or cfg.method != "rk4":
+        if cfg.backend == "pallas":
+            raise ValueError("backend='pallas' serves method='rk4' only")
         return False
-    return jax.default_backend() == "tpu"
+    on_gpu = jax.default_backend() == "gpu"
+    if cfg.backend == "pallas" and not on_gpu:
+        raise RuntimeError("backend='pallas' needs a GPU (the kernel compiles "
+                           "through Triton); use backend='auto' or 'scan'")
+    return on_gpu
 
 
 def integrate(env: GeodesicEnv, s0: RayState, cfg: IntegratorConfig) -> RayState:
-    if cfg.method == "dopri":
-        if cfg.mode == "while":       # forward-only fast path
-            if _use_pallas(env, cfg):
-                # in-kernel per-ray step controller (VMEM-resident state;
-                # the XLA while-loop round-trips the carry through HBM
-                # every trip -- measured 19x slower on v5e at 512^2)
-                from .pallas_kernel import integrate_pallas_dopri
-
-                return integrate_pallas_dopri(env, s0, cfg)
-            return integrate_adaptive(env, s0, cfg)[0]
-        if _use_pallas(env, cfg):
-            # differentiable adaptive in-kernel: custom-vjp core whose
-            # backward is the checkpointed exact discrete adjoint through
-            # the step controller (per-ray h checkpointed with the state)
-            # -- same discrete trajectory and gradient as the scan path
-            from .pallas_kernel import integrate_pallas_dopri
-
-            return integrate_pallas_dopri(env, s0, cfg, grad=True)
-        return integrate_adaptive_scan(env, s0, cfg)
-    if _use_pallas(env, cfg):
+    if cfg.method not in ("rk4", "dopri"):
+        raise ValueError(f"unknown method {cfg.method!r}")
+    if _use_pallas(cfg):
         from .pallas_kernel import integrate_pallas
 
         return integrate_pallas(env, s0, cfg)
+    if cfg.method == "dopri":
+        if cfg.mode == "while":       # forward-only fast path
+            return integrate_adaptive(env, s0, cfg)[0]
+        return integrate_adaptive_scan(env, s0, cfg)
     if cfg.mode == "while":
         return integrate_fixed_fast(env, s0, cfg)
     return integrate_fixed(env, s0, cfg)

@@ -1,38 +1,30 @@
-"""Pallas TPU kernels: the fused geodesic-integration hot loop.
+"""Fused RK4 geodesic integration: a Pallas kernel for NVIDIA GPUs (Triton).
 
-This is the framework's native component -- the layer the reference
-delegates to scipy's compiled RK45 core (one ``solve_ivp`` per pixel,
-/root/reference/raytracer/RelativisticRenderEngine.py:293-294; README.md:196).
-Here the WHOLE integration of a ray tile -- hundreds of RK4 steps, event
-detection, termination -- runs inside one Pallas kernel:
+The XLA path (``integrate.integrate_fixed``) is a ``lax.scan`` that reads
+and writes the whole ray state in device memory at every step and runs every
+step for every ray.  This kernel runs the WHOLE integration of a block of
+rays inside one program:
 
-* **SoA component layout**: per-ray state lives as (sublanes, 128) f32
-  tiles per scalar component (x0,x1,x2,p0,p1,p2,...), never as (..., 3)
-  vectors, so every op is a full-width VPU op and there are no cross-lane
-  reductions in the hot loop.
-* **VMEM residency**: state is read from HBM once, stepped n_steps times
-  on-chip, written back once.  The XLA-scan formulation round-trips the
-  carry through HBM every step; the kernel is orders of magnitude faster
-  end to end on this stack.
-* **Early exit**: the non-grad step loop is a ``lax.while_loop`` that stops
-  as soon as every ray in the tile has terminated; the round-robin
-  load-balancing shuffle (parallel/render.py) spreads expensive
-  photon-sphere grazers evenly over tiles.
-* **Checkpointed exact adjoint** (grad path): the forward kernel stores the
-  state every ``seg`` steps; the backward kernel re-integrates each segment
-  forward into a VMEM tape and then applies a hand-written RK4-skeleton
-  transpose (``_step_adjoint``) in reverse -- per-stage ``jax.vjp`` of the
-  bare RHS so only one stage's residuals are ever live, with the
-  event/freeze tail transposed by its own small vjp -- equal by
-  construction to ``jax.vjp`` of the traced step (parity-tested), i.e. the
-  discrete adjoint is exact.  Cotangents flow to the initial rays (x, p),
-  the conserved energies E, the BH mass, the step-size parameters and the
-  sphere geometry (centers/radii) -- with O(n_steps/seg) HBM traffic.
+* **one ray per thread**: the state is ten 1-D component blocks
+  (x0, x1, x2, p0, p1, p2, E, lam, status, hit_obj) of ``block`` rays, held
+  in registers for all ``n_steps`` steps; device memory is read once and
+  written once;
+* **per-block early exit**: the step loop runs in chunks, and a chunk is
+  skipped (``lax.cond`` on a block-wide reduction) once every ray of the
+  block has stopped;
+* scalars (mass, step schedule, termination radii, disk, spin) and the
+  sphere table come in as small whole-array inputs.
 
-The step physics MUST match ops/integrate.py exactly (the XLA path is the
-reference implementation and the CPU/test path); tests enforce close
-parity.  Kerr (spin != None) uses the same kernels with a hand-derived
-analytic Kerr-Schild RHS (the SoA twin of native/src/geodesic.cpp).
+**Gradient**: ``jax.custom_vjp``.  The backward pass is XLA's vjp of the
+checkpointed RK4 segments of ``integrate_fixed``, so the gradient is the
+reference's exact discrete adjoint.  The forward rule runs the kernel with
+``ckpt=True``: it also writes the state before every remat segment, and the
+backward pass recomputes each segment from those checkpoints in reverse.
+
+The step physics mirrors ``ops/integrate.py`` (the reference implementation
+and the CPU path); tests enforce parity.  Kerr (spin != None) uses a
+hand-derived analytic Kerr-Schild RHS, the component twin of
+``native/src/geodesic.cpp``.
 """
 
 from __future__ import annotations
@@ -43,25 +35,33 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
 from . import states
+from .integrate import _fixed_step, _segments
 
-Array = jax.Array
-
-LANES = 128
 _INF = jnp.inf
 
-# Scalar-parameter vector layout:
+# Scalar-parameter vector, padded to a power of two for Triton:
 # [mass, dt, dt_boost, r_ref, r_capture, r_escape, lam_max, r_in, r_out, a]
-NSCAL = 10
+NSCAL = 16
+_N_USED = 10
+
+
+def _pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _any(mask):
+    """Block-wide any(); Triton lowers integer max but not a boolean or."""
+    return jnp.max(mask.astype(jnp.int32)) > 0
 
 
 # =============================================================================
-# The step, in SoA tile form (pure jnp; traced fwd and under vjp in bwd).
+# The step, on 1-D component blocks (pure jnp: also runs on plain arrays).
 # =============================================================================
 def _rhs_schw_soa(mass, E):
-    """SoA Schwarzschild-KS Hamiltonian RHS (geodesic.schwarzschild_rhs)."""
+    """Component Schwarzschild-KS Hamiltonian RHS (geodesic.schwarzschild_rhs)."""
 
     def rhs(a0, a1, a2, b0, b1, b2):
         r2 = jnp.maximum(a0 * a0 + a1 * a1 + a2 * a2, 1e-12)
@@ -85,7 +85,7 @@ def _rhs_kerr_soa(mass, spin, E):
     """Analytic Kerr-Schild RHS: dp = +d/dx [H w^2] with the gradient
     hand-derived via implicit differentiation of the KS radius
     (dr/dx_i = (r^2 x_i + a^2 z delta_i2)/(r S), S = 2r^2 - (rho^2-a^2))
-    -- the SoA twin of native/src/geodesic.cpp::rhs, ~2x cheaper than
+    -- the component twin of native/src/geodesic.cpp::rhs, ~2x cheaper than
     per-step jax.grad of the potential (verified equal in tests)."""
 
     def rhs(a0, a1, a2, b0, b1, b2):
@@ -144,7 +144,7 @@ def _rhs_kerr_soa(mass, spin, E):
 
 def _ks_radius_soa(spin):
     def ks_r(a0, a1, a2):
-        """Kerr-Schild radius (models/kerr.ks_radius, SoA form)."""
+        """Kerr-Schild radius (models/kerr.ks_radius, component form)."""
         rho2 = a0 * a0 + a1 * a1 + a2 * a2
         bq = rho2 - spin * spin
         r2 = 0.5 * (bq + jnp.sqrt(bq * bq + 4.0 * spin * spin * a2 * a2))
@@ -153,12 +153,11 @@ def _ks_radius_soa(spin):
     return ks_r
 
 
-def _dt_soa(a0, a1, a2, active, scal, enabled, kerr, power):
+def _dt_soa(a0, a1, a2, active, scal, kerr, power):
     """Per-ray step size: radius-proportional growth (integrate._dt_eff)."""
     dt0, boost, r_ref = scal[1], scal[2], scal[3]
-    spin = scal[9]
     if kerr:
-        ra = _ks_radius_soa(spin)(a0, a1, a2)
+        ra = _ks_radius_soa(scal[9])(a0, a1, a2)
     else:
         ra = jnp.sqrt(a0 * a0 + a1 * a1 + a2 * a2)
     dt = jnp.where(active, dt0, 0.0)
@@ -169,44 +168,34 @@ def _dt_soa(a0, a1, a2, active, scal, enabled, kerr, power):
         ratio = ratio * ratio
     elif power != 1.0:
         ratio = jnp.maximum(ratio, 1e-20) ** power
-    dt = dt * jnp.clip(ratio, 1.0, boost)
-    if enabled is not None:
-        dt = dt * enabled.astype(dt.dtype)
-    return dt
+    return dt * jnp.clip(ratio, 1.0, boost)
 
 
 def _events_merge(xp, cand, dt, lam, status, hit_obj, scal, sph, *,
-                  has_disk, n_sph, kerr, guard_spheres=False):
+                  has_disk, n_sph, kerr):
     """Event detection + classification + freeze-merge of one step
-    candidate ``cand`` = (y0..q2) from state ``xp`` = (x0..p2, E) -- the
-    block shared verbatim by the RK4 step (``_soa_step``) and the adaptive
-    Dormand-Prince trip (``_dopri_trip``); mirrors integrate._apply_events
-    (kept in lockstep; parity is tested).
+    candidate ``cand`` = (y0..q2) from state ``xp`` = (x0..p2, E); mirrors
+    integrate._apply_events (kept in lockstep; parity is tested).
+    ``sph`` is the flat sphere table (cx, cy, cz, radius) * n_sph.
 
-    ``guard_spheres`` (forward-only kernels) wraps the K-sphere quadratic
-    tests in a tile-uniform ``lax.cond`` behind a CONSERVATIVE radius-shell
-    possibility test: every point of the segment x -> y lies within
-    L = |y - x| of y, so sphere k (surface radii [|c_k|-rad_k,
-    |c_k|+rad_k]) can only be hit when [|y|-L, |y|+L] overlaps that band.
-    Tiles integrating in the strong field (|y| < min_k band) or the far
-    approach (|y| > max_k band + L) skip the whole K-sphere block; results
-    are bit-identical by construction (the skipped branch returns the
-    no-hit defaults the tests would have produced).  Kept OFF in the
-    grad/adjoint kernels: the vjp of a cond doubles the transpose
-    plumbing for no measured backward win."""
+    The K-sphere quadratic tests sit behind a block-uniform ``lax.cond``
+    on a CONSERVATIVE radius-shell possibility test: every point of the
+    segment x -> y lies within L = |y - x| of y, so sphere k (surface radii
+    [|c_k|-rad_k, |c_k|+rad_k]) can only be hit when [|y|-L, |y|+L]
+    overlaps that band.  Blocks integrating in the strong field or the far
+    approach skip the whole K-sphere block; results are bit-identical by
+    construction (the skipped branch returns the no-hit defaults)."""
     x0, x1, x2, p0, p1, p2, E = xp
     y0, y1, y2, q0, q1, q2 = cand
     r_cap, r_esc, lam_max = scal[4], scal[5], scal[6]
     spin = scal[9]
     active = status == states.ACTIVE
 
-    def radius(a0, a1, a2):
-        if kerr:
-            return _ks_radius_soa(spin)(a0, a1, a2)
-        return jnp.sqrt(a0 * a0 + a1 * a1 + a2 * a2)
-
     # endpoint radius; computed first so the sphere guard can reuse it
-    rb = radius(y0, y1, y2)
+    if kerr:
+        rb = _ks_radius_soa(spin)(y0, y1, y2)
+    else:
+        rb = jnp.sqrt(y0 * y0 + y1 * y1 + y2 * y2)
 
     # --- events on the segment (x -> y); integrate._apply_events ----------
     disk_p0 = disk_p1 = None
@@ -232,8 +221,7 @@ def _events_merge(xp, cand, dt, lam, status, hit_obj, scal, sph, *,
             denom_a = jnp.where(aa > 0, 2.0 * aa, 1.0)
             ts, ids = t_sph, sph_id
             for k in range(n_sph):
-                cx, cy, cz = sph[k, 0], sph[k, 1], sph[k, 2]
-                rad = sph[k, 3]
+                cx, cy, cz, rad = sph[4 * k:4 * k + 4]
                 o0, o1, o2 = x0 - cx, x1 - cy, x2 - cz
                 bb = 2.0 * (o0 * dx0 + o1 * dx1 + o2 * dx2)
                 cc = o0 * o0 + o1 * o1 + o2 * o2 - rad * rad
@@ -246,28 +234,20 @@ def _events_merge(xp, cand, dt, lam, status, hit_obj, scal, sph, *,
                 ids = jnp.where(valid, k, ids)
             return ts, ids
 
-        if guard_spheres:
-            # conservative per-tile possibility test (see docstring).  The
-            # sphere geometry is EUCLIDEAN; rb is reused as the radius
-            # proxy: for Schwarzschild rb IS the Euclidean |y|, for Kerr
-            # the KS radius brackets it as rb <= |y| <= sqrt(rb^2 + a^2)
-            # <= rb + |a|, so widening the band by |a| stays conservative
-            # without a second sqrt.
-            L = jnp.sqrt(aa)
-            slack = jnp.abs(spin) if kerr else 0.0
-            possible = jnp.zeros_like(active)
-            for k in range(n_sph):
-                ck = jnp.sqrt(sph[k, 0] * sph[k, 0] + sph[k, 1] * sph[k, 1]
-                              + sph[k, 2] * sph[k, 2])
-                rad = sph[k, 3]
-                possible = possible | (
-                    (rb - L <= ck + rad)
-                    & (rb + slack + L >= ck - rad))
-            t_sph, sph_id = lax.cond(
-                jnp.any(possible & active), sphere_tests,
-                lambda _: (t_sph, sph_id), None)
-        else:
-            t_sph, sph_id = sphere_tests(None)
+        # The sphere geometry is EUCLIDEAN; rb is reused as the radius
+        # proxy: for Schwarzschild rb IS |y|, for Kerr the KS radius
+        # brackets it as rb <= |y| <= sqrt(rb^2 + a^2) <= rb + |a|, so
+        # widening the band by |a| stays conservative without a second sqrt.
+        L = jnp.sqrt(aa)
+        slack = jnp.abs(spin) if kerr else 0.0
+        possible = jnp.zeros_like(active)
+        for k in range(n_sph):
+            cx, cy, cz, rad = sph[4 * k:4 * k + 4]
+            ck = jnp.sqrt(cx * cx + cy * cy + cz * cz)
+            possible = possible | ((rb - L <= ck + rad)
+                                   & (rb + slack + L >= ck - rad))
+        t_sph, sph_id = lax.cond(_any(possible & active), sphere_tests,
+                                 lambda _: (t_sph, sph_id), None)
 
     # --- endpoint classification ------------------------------------------
     lam1 = lam + dt
@@ -318,33 +298,20 @@ def _events_merge(xp, cand, dt, lam, status, hit_obj, scal, sph, *,
 
 
 def _soa_step(xp, lam, status, hit_obj, scal, sph, *, has_disk, n_sph,
-              kerr=False, enabled=None, power=1.0, guard_spheres=False):
-    """One RK4 step + event handling on (S, 128) component tiles.
+              kerr=False, power=1.0):
+    """One RK4 step + event handling on 1-D component blocks.
 
     Mirrors integrate._fixed_step + _apply_events (kept in lockstep; parity
     is tested).  Returns ((x0..p2, E), lam1, status1, hit_obj1).
-    ``enabled`` (scalar bool) gates the step: a disabled step has dt = 0
-    and is exactly the identity, which lets kernels pad the trip count to a
-    chunk/segment multiple while integrating EXACTLY n_steps steps.
     ``kerr=True`` switches the RHS to the Kerr-Schild family with spin
-    ``a = scal[9]`` (hand-derived analytic gradient, equal to
-    ops/geodesic.ks_rhs -- parity tested) and the termination/step radius
-    to the Kerr-Schild radius.
+    ``a = scal[9]`` and the termination/step radius to the KS radius.
     """
     x0, x1, x2, p0, p1, p2, E = xp
-    mass = scal[0]
-    spin = scal[9]
-
+    mass, spin = scal[0], scal[9]
     active = status == states.ACTIVE
-
-    # --- per-ray dt (radius-proportional growth; integrate._dt_eff) -------
-    dt = _dt_soa(x0, x1, x2, active, scal, enabled, kerr, power)
-
-    # --- RK4 on the Hamiltonian system (geodesic.schwarzschild_rhs /
-    #     geodesic.ks_rhs) ---------------------------------------------------
+    h = _dt_soa(x0, x1, x2, active, scal, kerr, power)
     rhs = (_rhs_kerr_soa(mass, spin, E) if kerr
            else _rhs_schw_soa(mass, E))
-    h = dt
 
     def axpy(c, ks):
         return (x0 + c * ks[0], x1 + c * ks[1], x2 + c * ks[2],
@@ -355,1282 +322,229 @@ def _soa_step(xp, lam, status, hit_obj, scal, sph, *, has_disk, n_sph,
     kc = rhs(*axpy(0.5 * h, kb))
     kd = rhs(*axpy(h, kc))
     s6 = h * (1.0 / 6.0)
-    y0 = x0 + s6 * (ka[0] + 2.0 * (kb[0] + kc[0]) + kd[0])
-    y1 = x1 + s6 * (ka[1] + 2.0 * (kb[1] + kc[1]) + kd[1])
-    y2 = x2 + s6 * (ka[2] + 2.0 * (kb[2] + kc[2]) + kd[2])
-    q0 = p0 + s6 * (ka[3] + 2.0 * (kb[3] + kc[3]) + kd[3])
-    q1 = p1 + s6 * (ka[4] + 2.0 * (kb[4] + kc[4]) + kd[4])
-    q2 = p2 + s6 * (ka[5] + 2.0 * (kb[5] + kc[5]) + kd[5])
-
-    return _events_merge(xp, (y0, y1, y2, q0, q1, q2), dt, lam, status,
-                         hit_obj, scal, sph, has_disk=has_disk,
-                         n_sph=n_sph, kerr=kerr,
-                         guard_spheres=guard_spheres)
+    cand = tuple(v + s6 * (ka[i] + 2.0 * (kb[i] + kc[i]) + kd[i])
+                 for i, v in enumerate((x0, x1, x2, p0, p1, p2)))
+    return _events_merge(xp, cand, h, lam, status, hit_obj, scal, sph,
+                         has_disk=has_disk, n_sph=n_sph, kerr=kerr)
 
 
-# Dormand-Prince 5(4) tableau (integrate._DP_A/_DP_B5/_DP_B4, inlined here
-# so the kernel module has no import-order coupling with integrate.py).
-_DP_A = (
-    (),
-    (1 / 5,),
-    (3 / 40, 9 / 40),
-    (44 / 45, -56 / 15, 32 / 9),
-    (19372 / 6561, -25360 / 2187, 64448 / 6561, -212 / 729),
-    (9017 / 3168, -355 / 33, 46732 / 5247, 49 / 176, -5103 / 18656),
-    (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84),
-)
-_DP_B5 = (35 / 384, 0.0, 500 / 1113, 125 / 192, -2187 / 6784, 11 / 84, 0.0)
-_DP_E = tuple(
-    b5 - b4 for b5, b4 in zip(
-        _DP_B5,
-        (5179 / 57600, 0.0, 7571 / 16695, 393 / 640, -92097 / 339200,
-         187 / 2100, 1 / 40)))
+# =============================================================================
+# The kernel.
+# =============================================================================
+def _kernel(scal_ref, sph_ref,
+            x0r, x1r, x2r, p0r, p1r, p2r, Er, lamr, str_, objr,
+            ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj, *ck_refs,
+            n_steps, chunk, has_disk, n_sph, kerr, power):
+    """Integrate one block of rays for ``n_steps`` RK4 steps.
+
+    The steps run in ``chunk``-step chunks; a chunk is skipped once no ray
+    of the block is ACTIVE (a skipped chunk costs one block reduction).
+    With checkpoint outputs ``ck_refs`` = (x0..p2, lam, status), row ``c``
+    of each receives the state before chunk ``c``: one chunk is one remat
+    segment of ``integrate_fixed``."""
+    scal = tuple(scal_ref[i] for i in range(_N_USED))
+    sph = tuple(sph_ref[i] for i in range(4 * n_sph))
+    carry0 = ((x0r[...], x1r[...], x2r[...], p0r[...], p1r[...], p2r[...],
+               Er[...]), lamr[...], str_[...], objr[...])
+
+    def step(_, c):
+        xp, lam, st, obj = c
+        return _soa_step(xp, lam, st, obj, scal, sph, has_disk=has_disk,
+                         n_sph=n_sph, kerr=kerr, power=power)
+
+    def run_chunk(c, carry):
+        if ck_refs:
+            xp, lam, st, _ = carry
+            for ref, v in zip(ck_refs, (*xp[:6], lam, st)):
+                ref[c, :] = v
+        length = jnp.minimum(chunk, n_steps - c * chunk)
+        return lax.cond(_any(carry[2] == states.ACTIVE),
+                        lambda cc: lax.fori_loop(0, length, step, cc),
+                        lambda cc: cc, carry)
+
+    xp, lam, st, obj = lax.fori_loop(0, -(-n_steps // chunk), run_chunk,
+                                     carry0)
+    for ref, v in zip((ox0, ox1, ox2, op0, op1, op2), xp[:6]):
+        ref[...] = v
+    olam[...], ost[...], oobj[...] = lam, st, obj
 
 
-def _dopri_trip(xp, h, lam, status, hit_obj, scal, sph, *, has_disk, n_sph,
-                kerr, rtol, atol, min_step, max_step, enabled,
-                grad_guard=False, guard_spheres=False):
-    """One adaptive Dormand-Prince 5(4) TRIP (attempt) on SoA tiles: embed,
-    test the error, accept-or-reject, rescale the per-ray step ``h`` -- the
-    exact SoA twin of one ``integrate.integrate_adaptive`` while-loop body
-    (same tableau, same 0.2-power controller, same event handling via
-    ``_events_merge``; parity is tested).
-
-    Returns (xp1, h1, lam1, status1, hit_obj1).  A trip with
-    ``enabled=False`` is the exact identity (dt = 0 candidate rejected for
-    h purposes), which lets the kernel pad the trip count to a chunk
-    multiple.  ``grad_guard=True`` uses the double-where sqrt guard for the
-    error norm (identical forward values; finite vjp at err = 0, the
-    frozen-ray case) -- the adjoint path (_dopri_trip_adjoint) requires
-    it, mirroring integrate.integrate_adaptive_scan's guard."""
-    x0, x1, x2, p0, p1, p2, E = xp
-    mass, spin = scal[0], scal[9]
-    active = status == states.ACTIVE
-    live = active if enabled is None else (
-        active & jnp.asarray(enabled))
-
-    dt = jnp.where(live, h, 0.0)
-    rhs = (_rhs_kerr_soa(mass, spin, E) if kerr
-           else _rhs_schw_soa(mass, E))
-
-    ks = []
-    for i in range(7):
-        yi = (x0, x1, x2, p0, p1, p2)
-        for j, aij in enumerate(_DP_A[i]):
-            if aij != 0.0:
-                yi = tuple(b + (dt * aij) * k for b, k in zip(yi, ks[j]))
-        ks.append(rhs(*yi))
-
-    def comb(bs):
-        out = [jnp.zeros_like(x0)] * 6
-        for k, b in zip(ks, bs):
-            if b != 0.0:
-                out = [o + b * kc for o, kc in zip(out, k)]
-        return out
-
-    c5 = comb(_DP_B5)
-    y = (x0 + dt * c5[0], x1 + dt * c5[1], x2 + dt * c5[2],
-         p0 + dt * c5[3], p1 + dt * c5[4], p2 + dt * c5[5])
-    ce = comb(_DP_E)
-    err = [dt * c for c in ce]
-
-    # scaled RMS error over the 6 components (integrate_adaptive's norm)
-    base = (x0, x1, x2, p0, p1, p2)
-    err2 = jnp.zeros_like(x0)
-    for b, ynew, e in zip(base, y, err):
-        scale = atol + rtol * jnp.maximum(jnp.abs(b), jnp.abs(ynew))
-        r = e / scale
-        err2 = err2 + r * r
-    err2 = err2 * (1.0 / 6.0)
-    if grad_guard:
-        errn = jnp.where(err2 > 0,
-                         jnp.sqrt(jnp.where(err2 > 0, err2, 1.0)), 0.0)
-    else:
-        errn = jnp.sqrt(err2)
-
-    accept = ((errn <= 1.0) | (h <= min_step)) & live
-
-    xp1, lam1, st1, obj1 = _events_merge(
-        xp, y, dt, lam, status, hit_obj, scal, sph,
-        has_disk=has_disk, n_sph=n_sph, kerr=kerr,
-        guard_spheres=guard_spheres)
-
-    sel = lambda a, b: jnp.where(accept, a, b)
-    xp_next = tuple(sel(a, b) for a, b in zip(xp1[:6], xp))
-    lam_next = sel(lam1, lam)
-    st_next = jnp.where(accept, st1, status)
-    obj_next = jnp.where(accept, obj1, hit_obj)
-
-    factor = 0.9 * jnp.where(errn > 0, errn, 1e-10) ** -0.2
-    factor = jnp.clip(factor, 0.2, 5.0)
-    h_next = jnp.where(
-        (st_next == states.ACTIVE) & live,
-        jnp.clip(h * factor, min_step, max_step), h)
-
-    return (xp_next + (E,), h_next, lam_next, st_next, obj_next)
+# Rays per program, one ray per thread: 4 warps.  A sweep of 32..512 rays
+# and 1..16 warps on an H100 moved no variant by more than ~10%.
+_DEFAULT_BLOCK = 128
+_WARP = 32
 
 
-def _fwd_dopri_kernel(scal_ref, sph_ref,
-                      x0r, x1r, x2r, p0r, p1r, p2r, Er, hr, lamr, str_,
-                      objr,
-                      ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj,
-                      *, n_steps, has_disk, n_sph, kerr, rtol, atol,
-                      min_step, max_step, chunk=16):
-    """Adaptive-forward kernel: fori over chunks of dopri TRIPS, each chunk
-    skipped once every ray in the tile terminated (same early-exit shape as
-    _fwd_fast_kernel).  The per-ray step size h lives in its own component
-    row -- VMEM-resident across the whole integration like the state."""
-    scal = scal_ref[0, :]
-    sph = sph_ref[:] if n_sph else None
-
-    carry0 = (
-        (x0r[:], x1r[:], x2r[:], p0r[:], p1r[:], p2r[:], Er[:]),
-        hr[:], lamr[:], str_[:], objr[:],
-    )
+def _call(comps, scal, sph, *, n_steps, chunk, has_disk, n_sph, kerr,
+          power, block, ckpt, interpret):
+    """pallas_call over 1-D component arrays of length ``npad`` (a multiple
+    of ``block``).  Returns 9 output arrays, plus 8 checkpoint arrays of
+    shape (n_chunks_pad, npad) when ``ckpt``."""
+    npad = comps[0].shape[0]
     n_chunks = -(-n_steps // chunk)
-
-    def body(i, carry):
-        def run(carry):
-            def inner(j, c):
-                xp, h, lam, st, obj = c
-                return _dopri_trip(
-                    xp, h, lam, st, obj, scal, sph,
-                    has_disk=has_disk, n_sph=n_sph, kerr=kerr,
-                    rtol=rtol, atol=atol, min_step=min_step,
-                    max_step=max_step,
-                    enabled=i * chunk + j < n_steps,
-                    guard_spheres=True)
-
-            return lax.fori_loop(0, chunk, inner, carry)
-
-        st = carry[3]
-        return lax.cond(jnp.any(st == states.ACTIVE), run, lambda c: c,
-                        carry)
-
-    xp, h, lam, st, obj = lax.fori_loop(0, n_chunks, body, carry0)
-
-    ox0[:], ox1[:], ox2[:] = xp[0], xp[1], xp[2]
-    op0[:], op1[:], op2[:] = xp[3], xp[4], xp[5]
-    olam[:], ost[:], oobj[:] = lam, st, obj
-
-
-@functools.lru_cache(maxsize=64)
-def _build_dopri(n_steps: int, has_disk: bool, n_sph: int, sub: int,
-                 interpret: bool, kerr: bool, rtol: float, atol: float,
-                 min_step: float, max_step: float):
-    """Forward-only adaptive core for one static configuration."""
-
-    def f32_out(r):
-        return jax.ShapeDtypeStruct((r, LANES), jnp.float32)
-
-    def i32_out(r):
-        return jax.ShapeDtypeStruct((r, LANES), jnp.int32)
-
-    scal_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-
-    def fwd(*args):
-        scal, sph = args[11], args[12]
-        comps = args[:11]
-        r = comps[0].shape[0]
-        tiles = r // sub
-        kern = functools.partial(
-            _fwd_dopri_kernel, n_steps=n_steps, has_disk=has_disk,
-            n_sph=n_sph, kerr=kerr, rtol=rtol, atol=atol,
-            min_step=min_step, max_step=max_step)
-        outs = pl.pallas_call(
-            kern,
-            grid=(tiles,),
-            in_specs=[scal_spec, scal_spec] + [_row_spec(sub)] * 11,
-            out_specs=[_row_spec(sub)] * 9,
-            out_shape=[f32_out(r)] * 7 + [i32_out(r)] * 2,
-            interpret=interpret,
-        )(scal, sph, *comps)
-        return tuple(outs)
-
-    return fwd
-
-
-def integrate_pallas_dopri(env, s0, cfg, *, sub: int | None = None,
-                           interpret: bool = False, grad: bool = False):
-    """Pallas twin of integrate.integrate_adaptive: the whole per-ray
-    adaptive Dormand-Prince integration -- embedded error control,
-    accept/reject, per-ray h -- runs inside one kernel with the state
-    VMEM-resident, giving BASELINE config 2 (adaptive RK45 with early
-    exit, the reference's actual solver family,
-    /root/reference/README.md:196-211) a fast hardware path instead of an
-    HBM-round-tripping XLA while-loop.
-
-    ``grad=True`` returns the DIFFERENTIABLE core (same forward result):
-    a custom-vjp pair whose backward is the checkpointed exact discrete
-    adjoint through the step controller (_build_dopri_grad) -- the
-    in-kernel counterpart of integrate.integrate_adaptive_scan, with the
-    per-ray h checkpointed alongside the state."""
-    batch = s0.E.shape
-    if len(batch) != 1:
-        flat = states.RayState(
-            x=s0.x.reshape(-1, 3), p=s0.p.reshape(-1, 3),
-            E=s0.E.reshape(-1), lam=s0.lam.reshape(-1),
-            status=s0.status.reshape(-1), hit_obj=s0.hit_obj.reshape(-1))
-        out = integrate_pallas_dopri(env, flat, cfg, sub=sub,
-                                     interpret=interpret, grad=grad)
-        return states.RayState(
-            x=out.x.reshape(batch + (3,)), p=out.p.reshape(batch + (3,)),
-            E=s0.E, lam=out.lam.reshape(batch),
-            status=out.status.reshape(batch),
-            hit_obj=out.hit_obj.reshape(batch))
-    n = s0.E.shape[0]
-    seg = 16
-    while seg * seg < cfg.n_steps:
-        seg *= 2
-    n_seg = max(1, -(-cfg.n_steps // seg))
-    if sub is None:
-        if grad:
-            # Backward working set per tile: the seg-trip (8 f32 + 1 i32)
-            # tape, n_seg checkpoints of the same 9 components, I/O rows,
-            # plus the whole-trip vjp's 7-stage residuals (~90 rows).
-            sub = 8
-            for cand in (32, 16):
-                rows = (seg + n_seg) * 9 + 120
-                if rows * cand * LANES * 4 <= 12 * 2**20:
-                    sub = cand
-                    break
-        else:
-            # forward-only: no tape, just the 11-row carry + 7 k-pair
-            # temporaries; sub=64 fits comfortably (Kerr included)
-            sub = 64
-    tile = sub * LANES
-    pad = (-n) % tile
-    npad = n + pad
-
-    def pad_to(v, fill=0.0):
-        if pad:
-            v = jnp.concatenate(
-                [v, jnp.full((pad,) + v.shape[1:], fill, v.dtype)])
-        return v
-
-    h0 = jnp.minimum(jnp.asarray(cfg.dt, jnp.float32),
-                     jnp.asarray(cfg.max_step, jnp.float32))
-    comps = [pad_to(s0.x[:, 0], 1e3), pad_to(s0.x[:, 1]),
-             pad_to(s0.x[:, 2]),
-             pad_to(s0.p[:, 0]), pad_to(s0.p[:, 1]), pad_to(s0.p[:, 2]),
-             pad_to(s0.E, 1.0),
-             pad_to(jnp.full((n,), h0, jnp.float32)),
-             pad_to(s0.lam)]
-    st0 = pad_to(s0.status, states.ERROR)
-    obj0 = pad_to(s0.hit_obj, -1)
-    rows = npad // LANES
-    comps = [c.reshape(rows, LANES) for c in comps]
-    st0 = st0.reshape(rows, LANES)
-    obj0 = obj0.reshape(rows, LANES)
-
-    # cost-coherent tile ordering (same key as integrate_pallas)
-    reorder = cfg.tile_order == "cost" and rows > 2 * sub
-    if reorder:
-        x0f, x1f, x2f, p0f, p1f, p2f = comps[:6]
-        cx = x1f * p2f - x2f * p1f
-        cy = x2f * p0f - x0f * p2f
-        cz = x0f * p1f - x1f * p0f
-        key = jnp.max(cx * cx + cy * cy + cz * cz, axis=1)
-        order = jnp.argsort(lax.stop_gradient(key))
-        inv_order = jnp.zeros_like(order).at[order].set(
-            jnp.arange(rows, dtype=order.dtype), unique_indices=True)
-        comps = [c[order] for c in comps]
-        st0 = st0[order]
-        obj0 = obj0[order]
-
-    scal = jnp.stack([
-        jnp.asarray(env.mass, jnp.float32),
-        jnp.asarray(cfg.dt, jnp.float32),
-        jnp.asarray(1.0, jnp.float32),
-        jnp.asarray(1.0, jnp.float32),
-        jnp.asarray(env.r_capture, jnp.float32),
-        jnp.asarray(env.r_escape, jnp.float32),
-        jnp.asarray(env.lam_max, jnp.float32),
-        jnp.asarray(env.disk.r_in if env.disk is not None else 0.0,
-                    jnp.float32),
-        jnp.asarray(env.disk.r_out if env.disk is not None else 0.0,
-                    jnp.float32),
-        jnp.asarray(0.0 if env.spin is None else env.spin, jnp.float32),
-    ]).reshape(1, NSCAL)
-
-    n_sph = 0 if env.spheres is None else int(env.spheres.center.shape[0])
-    if n_sph:
-        sph = jnp.concatenate(
-            [jnp.asarray(env.spheres.center, jnp.float32),
-             jnp.asarray(env.spheres.radius, jnp.float32)[:, None]],
-            axis=1)
-    else:
-        sph = jnp.zeros((1, 4), jnp.float32)
-
-    import math
-
-    max_step = cfg.max_step if math.isfinite(cfg.max_step) else 1e30
-    if grad:
-        core = _build_dopri_grad(cfg.n_steps, env.disk is not None, n_sph,
-                                 sub, seg, interpret,
-                                 env.spin is not None,
-                                 float(cfg.rtol), float(cfg.atol),
-                                 float(cfg.min_step), float(max_step))
-    else:
-        core = _build_dopri(cfg.n_steps, env.disk is not None, n_sph, sub,
-                            interpret, env.spin is not None,
-                            float(cfg.rtol), float(cfg.atol),
-                            float(cfg.min_step), float(max_step))
-    outs = core(*comps, st0, obj0, scal, sph)
-    ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj = outs
-    if reorder:
-        (ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj) = (
-            o[inv_order]
-            for o in (ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj))
-
-    x = jnp.stack([ox0.reshape(-1)[:n], ox1.reshape(-1)[:n],
-                   ox2.reshape(-1)[:n]], axis=-1)
-    p = jnp.stack([op0.reshape(-1)[:n], op1.reshape(-1)[:n],
-                   op2.reshape(-1)[:n]], axis=-1)
-    return states.RayState(
-        x=x, p=p, E=s0.E, lam=olam.reshape(-1)[:n],
-        status=ost.reshape(-1)[:n], hit_obj=oobj.reshape(-1)[:n])
-
-
-# =============================================================================
-# Differentiable adaptive Dormand-Prince: checkpointed exact discrete
-# adjoint THROUGH the step controller (the in-kernel counterpart of
-# integrate.integrate_adaptive_scan -- discretize-then-optimize: the
-# per-ray h is part of the differentiated carry, so gradients account for
-# h's dependence on the state, exactly like jax.grad of the scan path).
-# =============================================================================
-def _dopri_trip_adjoint(xp, h, lam, status, hit_obj, scal, sph, g6, gh, *,
-                        has_disk, n_sph, kerr, rtol, atol, min_step,
-                        max_step, enabled):
-    """Transpose of one ``_dopri_trip`` w.r.t. (x6, E, h, scal, sph).
-
-    A whole-trip ``jax.vjp`` with the taped ``lam``/``status``/``hit_obj``
-    closed over as constants: accept/reject and the event selectors are
-    boolean (non-differentiable decisions), while the controller chain
-    errn -> factor -> h_next IS differentiated -- matching what
-    ``jax.grad`` of ``integrate_adaptive_scan``'s body computes.  The 7
-    Dormand-Prince stage residuals coexist (unlike ``_step_adjoint``'s
-    sequential per-stage scheme); the Schwarzschild RHS is small enough
-    that this fits VMEM at the grad path's reduced ``sub``.
-
-    Args: taped pre-trip state ``xp`` = (x0..p2, E) and step ``h``,
-    cotangents ``g6`` (next state) and ``gh`` (next h).
-    Returns (g_x6(6), gE, g_h, gscal, gsph) with ``gsph = None`` when
-    ``n_sph == 0``."""
-    x6 = xp[:6]
-    E = xp[6]
-
-    if n_sph:
-        def trip_fn(x6_, E_, h_, scal_, sph_):
-            out = _dopri_trip(
-                (*x6_, E_), h_, lam, status, hit_obj, scal_, sph_,
-                has_disk=has_disk, n_sph=n_sph, kerr=kerr, rtol=rtol,
-                atol=atol, min_step=min_step, max_step=max_step,
-                enabled=enabled, grad_guard=True)
-            return tuple(out[0][:6]), out[1]
-
-        _, vjp = jax.vjp(trip_fn, x6, E, h, scal, sph)
-        gx6, gE, gh_prev, gscal, gsph = vjp((tuple(g6), gh))
-    else:
-        def trip_fn(x6_, E_, h_, scal_):
-            out = _dopri_trip(
-                (*x6_, E_), h_, lam, status, hit_obj, scal_, None,
-                has_disk=has_disk, n_sph=n_sph, kerr=kerr, rtol=rtol,
-                atol=atol, min_step=min_step, max_step=max_step,
-                enabled=enabled, grad_guard=True)
-            return tuple(out[0][:6]), out[1]
-
-        _, vjp = jax.vjp(trip_fn, x6, E, h, scal)
-        gx6, gE, gh_prev, gscal = vjp((tuple(g6), gh))
-        gsph = None
-    return gx6, gE, gh_prev, gscal, gsph
-
-
-def _fwd_dopri_ckpt_kernel(scal_ref, sph_ref,
-                           x0r, x1r, x2r, p0r, p1r, p2r, Er, hr, lamr,
-                           str_, objr,
-                           ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj,
-                           cx0, cx1, cx2, cp0, cp1, cp2, ch, clam, cst,
-                           *, n_steps, has_disk, n_sph, seg, kerr, rtol,
-                           atol, min_step, max_step):
-    """Grad-path adaptive forward: checkpoints (state, h, lam, status)
-    BEFORE trips 0, seg, 2*seg, ... (the dopri twin of _fwd_ckpt_kernel;
-    the per-ray step h joins the checkpoint set because the backward
-    segment recompute must restart the controller from the exact taped
-    h)."""
-    scal = scal_ref[0, :]
-    sph = sph_ref[:] if n_sph else None
-    n_seg = -(-n_steps // seg)
-
-    carry0 = (
-        (x0r[:], x1r[:], x2r[:], p0r[:], p1r[:], p2r[:], Er[:]),
-        hr[:], lamr[:], str_[:], objr[:],
-    )
-
-    def body(s, carry):
-        xp, h, lam, st, obj = carry
-        cx0[s], cx1[s], cx2[s] = xp[0], xp[1], xp[2]
-        cp0[s], cp1[s], cp2[s] = xp[3], xp[4], xp[5]
-        ch[s] = h
-        clam[s] = lam
-        cst[s] = st
-
-        def run(carry):
-            def inner(j, c):
-                def trip(c):
-                    xp_, h_, lam_, st_, obj_ = c
-                    return _dopri_trip(
-                        xp_, h_, lam_, st_, obj_, scal, sph,
-                        has_disk=has_disk, n_sph=n_sph, kerr=kerr,
-                        rtol=rtol, atol=atol, min_step=min_step,
-                        max_step=max_step,
-                        enabled=s * seg + j < n_steps)
-
-                return lax.cond(jnp.any(c[3] == states.ACTIVE), trip,
-                                lambda c: c, c)
-
-            return lax.fori_loop(0, seg, inner, carry)
-
-        return lax.cond(jnp.any(st == states.ACTIVE), run, lambda c: c,
-                        carry)
-
-    xp, h, lam, st, obj = lax.fori_loop(0, n_seg, body, carry0)
-
-    ox0[:], ox1[:], ox2[:] = xp[0], xp[1], xp[2]
-    op0[:], op1[:], op2[:] = xp[3], xp[4], xp[5]
-    olam[:], ost[:], oobj[:] = lam, st, obj
-
-
-def _bwd_dopri_kernel(scal_ref, sph_ref,
-                      cx0, cx1, cx2, cp0, cp1, cp2, ch, clam, cst, Er,
-                      objr,
-                      gx0, gx1, gx2, gp0, gp1, gp2,
-                      bx0, bx1, bx2, bp0, bp1, bp2, bE, bscal, bsph,
-                      tx0, tx1, tx2, tp0, tp1, tp2, th, tlam, tst,
-                      *, n_steps, has_disk, n_sph, seg, kerr, rtol, atol,
-                      min_step, max_step):
-    """Adaptive backward: per segment (reverse order), re-run the dopri
-    trips from the checkpoint filling the (state, h, lam, status) tape,
-    then sweep ``_dopri_trip_adjoint`` in reverse.  The h cotangent is part
-    of the reverse carry (h_next depends on the state through the error
-    norm; its cotangent flows back into the trajectory); at trip 0 it lands
-    on the constant initial h and is dropped."""
-    scal = scal_ref[0, :]
-    sph = sph_ref[:] if n_sph else None
-    n_seg = -(-n_steps // seg)
-
-    E = Er[:]
-    obj_dummy = objr[:]
-
-    def seg_body(si, carry):
-        s = n_seg - 1 - si
-
-        def process(carry):
-            def fwd_body(i, c):
-                xp, h, lam, st, obj = c
-                tx0[i], tx1[i], tx2[i] = xp[0], xp[1], xp[2]
-                tp0[i], tp1[i], tp2[i] = xp[3], xp[4], xp[5]
-                th[i] = h
-                tlam[i] = lam
-                tst[i] = st
-
-                def trip(c):
-                    xp_, h_, lam_, st_, obj_ = c
-                    return _dopri_trip(
-                        xp_, h_, lam_, st_, obj_, scal, sph,
-                        has_disk=has_disk, n_sph=n_sph, kerr=kerr,
-                        rtol=rtol, atol=atol, min_step=min_step,
-                        max_step=max_step,
-                        enabled=s * seg + i < n_steps)
-
-                return lax.cond(jnp.any(st == states.ACTIVE), trip,
-                                lambda c: c, c)
-
-            carry_in = (
-                (cx0[s], cx1[s], cx2[s], cp0[s], cp1[s], cp2[s], E),
-                ch[s], clam[s], cst[s], obj_dummy,
-            )
-            lax.fori_loop(0, seg, fwd_body, carry_in)
-
-            def bwd_body(j, c):
-                i = seg - 1 - j
-
-                def adjoint(c):
-                    (vx0, vx1, vx2, vp0, vp1, vp2, vE, vh, vscal,
-                     vsph) = c
-                    g6, gE, gh, gscal, gsph = _dopri_trip_adjoint(
-                        (tx0[i], tx1[i], tx2[i],
-                         tp0[i], tp1[i], tp2[i], E),
-                        th[i], tlam[i], tst[i], obj_dummy, scal, sph,
-                        (vx0, vx1, vx2, vp0, vp1, vp2), vh,
-                        has_disk=has_disk, n_sph=n_sph, kerr=kerr,
-                        rtol=rtol, atol=atol, min_step=min_step,
-                        max_step=max_step,
-                        enabled=s * seg + i < n_steps)
-                    return (*g6, vE + gE, gh, vscal + gscal,
-                            vsph + gsph if n_sph else vsph)
-
-                # Fully-frozen trip: exact identity on (x, p, h) -- skip.
-                return lax.cond(jnp.any(tst[i] == states.ACTIVE), adjoint,
-                                lambda c: c, c)
-
-            return lax.fori_loop(0, seg, bwd_body, carry)
-
-        return lax.cond(jnp.any(cst[s] == states.ACTIVE),
-                        process, lambda c: c, carry)
-
-    zero_t = jnp.zeros_like(gx0[:])
-    init = (gx0[:], gx1[:], gx2[:], gp0[:], gp1[:], gp2[:], zero_t,
-            zero_t,                      # gh: final h is unused downstream
-            jnp.zeros((NSCAL,), jnp.float32),
-            jnp.zeros_like(sph) if n_sph else jnp.zeros((1, 4),
-                                                        jnp.float32))
-    (vx0, vx1, vx2, vp0, vp1, vp2, vE, _vh, vscal, vsph) = lax.fori_loop(
-        0, n_seg, seg_body, init)
-
-    bx0[:], bx1[:], bx2[:] = vx0, vx1, vx2
-    bp0[:], bp1[:], bp2[:] = vp0, vp1, vp2
-    bE[:] = vE
-
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        bscal[:] = jnp.zeros_like(bscal)
-        bsph[:] = jnp.zeros_like(bsph)
-
-    bscal[:] = bscal[:] + vscal.reshape(1, NSCAL)
-    bsph[:] = bsph[:] + vsph.reshape(bsph.shape)
-
-
-@functools.lru_cache(maxsize=64)
-def _build_dopri_grad(n_steps: int, has_disk: bool, n_sph: int, sub: int,
-                      seg: int, interpret: bool, kerr: bool, rtol: float,
-                      atol: float, min_step: float, max_step: float):
-    """custom-vjp'd adaptive core: fast forward (no tape) as the primal,
-    checkpointing forward + checkpointed-adjoint backward under jax.grad.
-
-    Core signature (all (R, 128) f32 unless noted):
-      core(x0,x1,x2,p0,p1,p2,E, h0, lam0, st0:i32, obj0:i32,
-           scal:(1,NSCAL), sph:(n_sph_pad,4))
-      -> (x0',x1',x2',p0',p1',p2', lam', st', obj')
-    """
-    n_seg = max(1, -(-n_steps // seg))
-    n_sph_pad = max(n_sph, 1)
-
-    def f32_out(r):
-        return jax.ShapeDtypeStruct((r, LANES), jnp.float32)
-
-    def i32_out(r):
-        return jax.ShapeDtypeStruct((r, LANES), jnp.int32)
-
-    scal_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    common = dict(interpret=interpret)
-    dp_kw = dict(n_steps=n_steps, has_disk=has_disk, n_sph=n_sph,
-                 kerr=kerr, rtol=rtol, atol=atol, min_step=min_step,
-                 max_step=max_step)
-
-    def fwd_fast(*args):
-        scal, sph = args[11], args[12]
-        comps = args[:11]
-        r = comps[0].shape[0]
-        tiles = r // sub
-        kern = functools.partial(_fwd_dopri_kernel, **dp_kw)
-        outs = pl.pallas_call(
-            kern,
-            grid=(tiles,),
-            in_specs=[scal_spec, scal_spec] + [_row_spec(sub)] * 11,
-            out_specs=[_row_spec(sub)] * 9,
-            out_shape=[f32_out(r)] * 7 + [i32_out(r)] * 2,
-            **common,
-        )(scal, sph, *comps)
-        return tuple(outs)
-
-    def fwd_ckpt(*args):
-        scal, sph = args[11], args[12]
-        comps = args[:11]
-        r = comps[0].shape[0]
-        tiles = r // sub
-        kern = functools.partial(_fwd_dopri_ckpt_kernel, seg=seg, **dp_kw)
-        ck_f = jax.ShapeDtypeStruct((n_seg, r, LANES), jnp.float32)
-        ck_i = jax.ShapeDtypeStruct((n_seg, r, LANES), jnp.int32)
-        outs = pl.pallas_call(
-            kern,
-            grid=(tiles,),
-            in_specs=[scal_spec, scal_spec] + [_row_spec(sub)] * 11,
-            out_specs=[_row_spec(sub)] * 9 + [_ckpt_spec(n_seg, sub)] * 9,
-            out_shape=[f32_out(r)] * 7 + [i32_out(r)] * 2
-            + [ck_f] * 8 + [ck_i],
-            **common,
-        )(scal, sph, *comps)
-        return tuple(outs[:9]), tuple(outs[9:])
-
-    def bwd_call(scal, sph, ckpts, E, obj0, gx):
-        r = E.shape[0]
-        tiles = r // sub
-        kern = functools.partial(_bwd_dopri_kernel, seg=seg, **dp_kw)
-        outs = pl.pallas_call(
-            kern,
-            grid=(tiles,),
-            in_specs=[scal_spec, scal_spec]
-            + [_ckpt_spec(n_seg, sub)] * 9
-            + [_row_spec(sub)] * 2
-            + [_row_spec(sub)] * 6,
-            out_specs=[_row_spec(sub)] * 7 + [
-                pl.BlockSpec((1, NSCAL), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((n_sph_pad, 4), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_shape=[f32_out(r)] * 7 + [
-                jax.ShapeDtypeStruct((1, NSCAL), jnp.float32),
-                jax.ShapeDtypeStruct((n_sph_pad, 4), jnp.float32),
-            ],
-            scratch_shapes=[pltpu.VMEM((seg, sub, LANES), jnp.float32)] * 8
-            + [pltpu.VMEM((seg, sub, LANES), jnp.int32)],
-            **common,
-        )(scal, sph, *ckpts[:9], E, obj0, *gx)
-        return outs
-
-    @jax.custom_vjp
-    def core(x0, x1, x2, p0, p1, p2, E, h0, lam0, st0, obj0, scal, sph):
-        return fwd_fast(x0, x1, x2, p0, p1, p2, E, h0, lam0, st0, obj0,
-                        scal, sph)
-
-    def core_fwd(x0, x1, x2, p0, p1, p2, E, h0, lam0, st0, obj0, scal,
-                 sph):
-        outs, ckpts = fwd_ckpt(x0, x1, x2, p0, p1, p2, E, h0, lam0, st0,
-                               obj0, scal, sph)
-        return outs, (ckpts, E, obj0, scal, sph)
-
-    def core_bwd(res, g):
-        import numpy as np
-        ckpts, E, obj0, scal, sph = res
-        gx = g[:6]  # cotangents of (x', p'); lam'/st'/obj' are non-diff
-        outs = bwd_call(scal, sph, ckpts, E, obj0, gx)
-        bx = outs[:6]
-        bE = outs[6]
-        bscal = outs[7]
-        bsph = outs[8]
-        zeros_f = jnp.zeros_like(E)
-        zi = np.zeros(obj0.shape, jax.dtypes.float0)
-        # h0 cotangent: the initial step size is a static config constant
-        # (min(cfg.dt, cfg.max_step)); its cotangent has nowhere to flow.
-        return (*bx, bE, zeros_f, zeros_f, zi, zi, bscal, bsph)
-
-    core.defvjp(core_fwd, core_bwd)
-    return core
-
-
-def _step_adjoint(xp, lam, status, hit_obj, scal, sph, g6, *,
-                  has_disk, n_sph, kerr, power, enabled):
-    """Hand-written transpose of one _soa_step: RK4-skeleton adjoint with
-    per-stage ``jax.vjp`` of the bare RHS, applied in reverse with the
-    stage point recomputed at transpose time -- so only ONE stage's vjp
-    residuals are ever live (a whole-step ``jax.vjp`` keeps all four
-    stages' residuals plus the event/classification graph alive, which is
-    what forced Kerr tiles down to sub=32).  Exactly equal to ``jax.vjp``
-    of ``_soa_step(...)[:6]``: the step factors as
-    ``z = events_merge(x, rk4(x, dt(x)))`` and the event/freeze tail is
-    transposed with its own (small: no RK stage residuals) ``jax.vjp`` of
-    ``_events_merge``, chained into the hand skeleton transpose.  For
-    event-free configs the tail degenerates to the masked pass-through
-    ``y = where(active & finite, rk4, x)`` and is transposed by hand.
-    ``status``/``finite``/event selectors are boolean constants under the
-    vjp; ``lam``/``hit_obj`` feed only the dropped lam'/obj' outputs.
-
-    Args: taped pre-step state ``xp`` = (x0..p2, E), taped ``lam`` and
-    ``status``, object ids, scalar vector, sphere table (``None`` when
-    ``n_sph == 0``), output cotangents ``g6``.
-    Returns (g_xp(6), gE, gscal, gsph) with ``gsph = None`` if no spheres.
-    """
-    x0, x1, x2, p0, p1, p2, E = xp
-    active = status == states.ACTIVE
-
-    def dt_fn(a0, a1, a2, scal_):
-        return _dt_soa(a0, a1, a2, active, scal_, enabled, kerr, power)
-
-    h, dt_vjp = jax.vjp(dt_fn, x0, x1, x2, scal)
-
-    def rhs_fn(a0, a1, a2, b0, b1, b2, E_, scal_):
-        rhs = (_rhs_kerr_soa(scal_[0], scal_[9], E_) if kerr
-               else _rhs_schw_soa(scal_[0], E_))
-        return rhs(a0, a1, a2, b0, b1, b2)
-
-    # --- forward stage chain (matches _soa_step's RK4) ---------------------
-    # Schwarzschild: take each stage's vjp DURING the chain (one rhs primal
-    # per stage; all four residual sets coexist -- small for this RHS).
-    # Kerr: recompute the vjp point at transpose time instead, so only one
-    # stage's (much larger) residuals are ever live; costs one extra primal
-    # rhs per stage but keeps sub=32 compiling.
-    y = (x0, x1, x2, p0, p1, p2)
-
-    def axpy(c, ks):
-        return tuple(b + c * k for b, k in zip(y, ks))
-
-    def stage(pt):
-        if kerr:
-            return rhs_fn(*pt, E, scal), lambda g: jax.vjp(
-                rhs_fn, *pt, E, scal)[1](g)
-        k, vjp = jax.vjp(rhs_fn, *pt, E, scal)
-        return k, vjp
-
-    ka, vjp_a = stage(y)
-    yb = axpy(0.5 * h, ka)
-    kb, vjp_b = stage(yb)
-    yc = axpy(0.5 * h, kb)
-    kc, vjp_c = stage(yc)
-    yd = axpy(h, kc)
-    kd, vjp_d = stage(yd)
-    s6 = h * (1.0 / 6.0)
-    ksum = tuple(ka[i] + 2.0 * (kb[i] + kc[i]) + kd[i] for i in range(6))
-    ynew = tuple(y[i] + s6 * ksum[i] for i in range(6))
-
-    if has_disk or n_sph:
-        # --- transpose of the event/freeze tail via its own (cheap) vjp ---
-        # h enters the tail only through lam' (dropped output): closed over.
-        x6 = (x0, x1, x2, p0, p1, p2)
-        if n_sph:
-            def ev_fn(x6_, cand_, scal_, sph_):
-                out, _, _, _ = _events_merge(
-                    (*x6_, E), cand_, h, lam, status, hit_obj, scal_, sph_,
-                    has_disk=has_disk, n_sph=n_sph, kerr=kerr)
-                return out[:6]
-
-            _, ev_vjp = jax.vjp(ev_fn, x6, ynew, scal, sph)
-            g_old, gy, g_scal_ev, gsph = ev_vjp(g6)
-        else:
-            def ev_fn(x6_, cand_, scal_):
-                out, _, _, _ = _events_merge(
-                    (*x6_, E), cand_, h, lam, status, hit_obj, scal_, None,
-                    has_disk=has_disk, n_sph=0, kerr=kerr)
-                return out[:6]
-
-            _, ev_vjp = jax.vjp(ev_fn, x6, ynew, scal)
-            g_old, gy, g_scal_ev = ev_vjp(g6)
-            gsph = None
-    else:
-        finite = jnp.isfinite(ynew[0])
-        for comp in ynew[1:]:
-            finite &= jnp.isfinite(comp)
-        upd = active & finite
-
-        # --- transpose of the freeze merge  y' = where(upd, ynew, y) ------
-        gy = tuple(jnp.where(upd, g, 0.0) for g in g6)
-        g_old = tuple(jnp.where(upd, 0.0, g) for g in g6)
-        g_scal_ev = jnp.zeros_like(scal)
-        gsph = None
-
-    # --- transpose of the RK4 skeleton -------------------------------------
-    gh = (1.0 / 6.0) * sum(gy[i] * ksum[i] for i in range(6))
-    gx = list(gy)                      # identity path y' <- y
-    # stage d (input yd = y + h kc)
-    gd = vjp_d(tuple(s6 * gy[i] for i in range(6)))
-    gh += sum(gd[i] * kc[i] for i in range(6))
-    gkc = tuple(2.0 * s6 * gy[i] + h * gd[i] for i in range(6))
-    # stage c (input yc = y + h/2 kb)
-    gc = vjp_c(gkc)
-    gh += 0.5 * sum(gc[i] * kb[i] for i in range(6))
-    gkb = tuple(2.0 * s6 * gy[i] + 0.5 * h * gc[i] for i in range(6))
-    # stage b (input yb = y + h/2 ka)
-    gb = vjp_b(gkb)
-    gh += 0.5 * sum(gb[i] * ka[i] for i in range(6))
-    gka = tuple(s6 * gy[i] + 0.5 * h * gb[i] for i in range(6))
-    # stage a (input y)
-    ga = vjp_a(gka)
-    for i in range(6):
-        gx[i] += gd[i] + gc[i] + gb[i] + ga[i]
-    gE = gd[6] + gc[6] + gb[6] + ga[6]
-    gscal = gd[7] + gc[7] + gb[7] + ga[7]
-
-    # --- transpose of the per-ray dt ---------------------------------------
-    gdt = dt_vjp(gh)
-    gx[0] += gdt[0]
-    gx[1] += gdt[1]
-    gx[2] += gdt[2]
-    gscal = gscal + gdt[3] + g_scal_ev
-
-    return tuple(g_old[i] + gx[i] for i in range(6)), gE, gscal, gsph
-
-
-# =============================================================================
-# Forward kernels.
-# =============================================================================
-def _fwd_fast_kernel(scal_ref, sph_ref,
-                     x0r, x1r, x2r, p0r, p1r, p2r, Er, lamr, str_, objr,
-                     ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj,
-                     *, n_steps, has_disk, n_sph, kerr=False, power=1.0, chunk=16):
-    """Early-skipping forward: a fori_loop over CHUNKS of ``chunk`` fixed
-    steps, each chunk skipped via ``lax.cond`` once every ray in the tile
-    has terminated.  A chunk granularity amortizes the all-terminated
-    reduction; the fori-of-cond structure compiles an order of magnitude
-    faster than a top-level while_loop on this stack's Mosaic service while
-    skipping the same work (a skipped chunk costs one reduction)."""
-    scal = scal_ref[0, :]
-    sph = sph_ref[:] if n_sph else None
-
-    carry0 = (
-        (x0r[:], x1r[:], x2r[:], p0r[:], p1r[:], p2r[:], Er[:]),
-        lamr[:], str_[:], objr[:],
-    )
-    n_chunks = -(-n_steps // chunk)
-
-    def body(i, carry):
-        def run(carry):
-            def inner(j, c):
-                xp, lam, st, obj = c
-                return _soa_step(xp, lam, st, obj, scal, sph,
-                                 has_disk=has_disk, n_sph=n_sph, kerr=kerr,
-                                 power=power,
-                                 enabled=i * chunk + j < n_steps,
-                                 guard_spheres=True)
-
-            return lax.fori_loop(0, chunk, inner, carry)
-
-        st = carry[2]
-        return lax.cond(jnp.any(st == states.ACTIVE), run, lambda c: c,
-                        carry)
-
-    xp, lam, st, obj = lax.fori_loop(0, n_chunks, body, carry0)
-
-    ox0[:], ox1[:], ox2[:] = xp[0], xp[1], xp[2]
-    op0[:], op1[:], op2[:] = xp[3], xp[4], xp[5]
-    olam[:], ost[:], oobj[:] = lam, st, obj
-
-
-def _fwd_ckpt_kernel(scal_ref, sph_ref,
-                     x0r, x1r, x2r, p0r, p1r, p2r, Er, lamr, str_, objr,
-                     ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj,
-                     cx0, cx1, cx2, cp0, cp1, cp2, clam, cst,
-                     *, n_steps, has_disk, n_sph, seg, kerr=False, power=1.0):
-    """Grad-path forward: checkpoints the state BEFORE steps 0, seg, 2*seg,
-    ... into the c* outputs.  Segments whose tile is fully terminated are
-    identity maps: the loop exits early and the remaining checkpoints are
-    filled with the frozen state so the backward sweep can skip them."""
-    scal = scal_ref[0, :]
-    sph = sph_ref[:] if n_sph else None
-    n_seg = -(-n_steps // seg)
-
-    carry0 = (
-        (x0r[:], x1r[:], x2r[:], p0r[:], p1r[:], p2r[:], Er[:]),
-        lamr[:], str_[:], objr[:],
-    )
-
-    def body(s, carry):
-        xp, lam, st, obj = carry
-        cx0[s], cx1[s], cx2[s] = xp[0], xp[1], xp[2]
-        cp0[s], cp1[s], cp2[s] = xp[3], xp[4], xp[5]
-        clam[s] = lam
-        cst[s] = st
-
-        def run(carry):
-            def inner(j, c):
-                def step(c):
-                    xp_, lam_, st_, obj_ = c
-                    return _soa_step(xp_, lam_, st_, obj_, scal, sph,
-                                     has_disk=has_disk, n_sph=n_sph,
-                                     kerr=kerr, power=power,
-                                     enabled=s * seg + j < n_steps)
-
-                # skip steps after the tile froze mid-segment (exact
-                # identity; the bwd sweep skips them by the same test)
-                return lax.cond(jnp.any(c[2] == states.ACTIVE), step,
-                                lambda c: c, c)
-
-            return lax.fori_loop(0, seg, inner, carry)
-
-        # Fully-terminated segments are identity maps: skip the math; the
-        # checkpoint above still records the frozen state for the backward
-        # sweep (which skips them by the same test).
-        return lax.cond(jnp.any(st == states.ACTIVE), run, lambda c: c,
-                        carry)
-
-    xp, lam, st, obj = lax.fori_loop(0, n_seg, body, carry0)
-
-    ox0[:], ox1[:], ox2[:] = xp[0], xp[1], xp[2]
-    op0[:], op1[:], op2[:] = xp[3], xp[4], xp[5]
-    olam[:], ost[:], oobj[:] = lam, st, obj
-
-
-# =============================================================================
-# Backward kernel: segment recompute + exact discrete adjoint.
-# =============================================================================
-def _bwd_kernel(scal_ref, sph_ref,
-                cx0, cx1, cx2, cp0, cp1, cp2, clam, cst, Er, objr,
-                gx0, gx1, gx2, gp0, gp1, gp2,
-                bx0, bx1, bx2, bp0, bp1, bp2, bE, bscal, bsph,
-                tx0, tx1, tx2, tp0, tp1, tp2, tlam, tst,
-                *, n_steps, has_disk, n_sph, seg, kerr=False, power=1.0):
-    scal = scal_ref[0, :]
-    sph = sph_ref[:] if n_sph else None
-    n_seg = -(-n_steps // seg)
-
-    E = Er[:]
-    obj_dummy = objr[:]
-
-    def seg_body(si, carry):
-        s = n_seg - 1 - si
-
-        def process(carry):
-            # -- recompute forward through segment s, filling the tape -----
-            # A step whose tile is fully terminated is the exact identity:
-            # the tape row is still written (the adjoint sweep keys its own
-            # skip off tst) but the RK4 math is skipped.
-            def fwd_body(i, c):
-                xp, lam, st, obj = c
-                tx0[i], tx1[i], tx2[i] = xp[0], xp[1], xp[2]
-                tp0[i], tp1[i], tp2[i] = xp[3], xp[4], xp[5]
-                tlam[i] = lam
-                tst[i] = st
-
-                def step(c):
-                    xp_, lam_, st_, obj_ = c
-                    return _soa_step(xp_, lam_, st_, obj_, scal, sph,
-                                     has_disk=has_disk, n_sph=n_sph,
-                                     kerr=kerr, power=power,
-                                     enabled=s * seg + i < n_steps)
-
-                return lax.cond(jnp.any(st == states.ACTIVE), step,
-                                lambda c: c, c)
-
-            carry_in = (
-                (cx0[s], cx1[s], cx2[s], cp0[s], cp1[s], cp2[s], E),
-                clam[s], cst[s], obj_dummy,
-            )
-            lax.fori_loop(0, seg, fwd_body, carry_in)
-
-            # -- adjoint sweep within the segment --------------------------
-            def bwd_body(j, c):
-                i = seg - 1 - j
-
-                def adjoint(c):
-                    vx0, vx1, vx2, vp0, vp1, vp2, vE, vscal, vsph = c
-                    # hand RK4-skeleton adjoint (sequential per-stage vjp,
-                    # ~4x smaller live residuals than a whole-step jax.vjp;
-                    # event configs transpose the event tail with its own
-                    # small vjp inside)
-                    g6, gE, gscal, gsph = _step_adjoint(
-                        (tx0[i], tx1[i], tx2[i],
-                         tp0[i], tp1[i], tp2[i], E),
-                        tlam[i], tst[i], obj_dummy, scal, sph,
-                        (vx0, vx1, vx2, vp0, vp1, vp2),
-                        has_disk=has_disk, n_sph=n_sph,
-                        kerr=kerr, power=power,
-                        enabled=s * seg + i < n_steps)
-                    return (*g6, vE + gE, vscal + gscal,
-                            vsph + gsph if n_sph else vsph)
-
-                # Fully-frozen step: exact identity on (x, p), zero
-                # contribution to E/scal/sph cotangents -- skip the vjp.
-                return lax.cond(jnp.any(tst[i] == states.ACTIVE), adjoint,
-                                lambda c: c, c)
-
-            return lax.fori_loop(0, seg, bwd_body, carry)
-
-        # A tile with no ACTIVE ray at the segment start never moves inside
-        # it: the segment is the identity map and the whole recompute +
-        # adjoint sweep is skipped (big win: most rays terminate early).
-        return lax.cond(jnp.any(cst[s] == states.ACTIVE),
-                        process, lambda c: c, carry)
-
-    zero_t = jnp.zeros_like(gx0[:])
-    init = (gx0[:], gx1[:], gx2[:], gp0[:], gp1[:], gp2[:], zero_t,
-            jnp.zeros((NSCAL,), jnp.float32),
-            jnp.zeros_like(sph) if n_sph else jnp.zeros((1, 4), jnp.float32))
-    vx0, vx1, vx2, vp0, vp1, vp2, vE, vscal, vsph = lax.fori_loop(
-        0, n_seg, seg_body, init)
-
-    bx0[:], bx1[:], bx2[:] = vx0, vx1, vx2
-    bp0[:], bp1[:], bp2[:] = vp0, vp1, vp2
-    bE[:] = vE
-
-    # Scalar/sphere cotangents accumulate across the sequential grid: the
-    # (1, ...) output block is revisited by every tile.
-    i = pl.program_id(0)
-
-    @pl.when(i == 0)
-    def _():
-        bscal[:] = jnp.zeros_like(bscal)
-        bsph[:] = jnp.zeros_like(bsph)
-
-    bscal[:] = bscal[:] + vscal.reshape(1, NSCAL)
-    bsph[:] = bsph[:] + vsph.reshape(bsph.shape)
-
-
-# =============================================================================
-# pallas_call plumbing + custom_vjp.
-# =============================================================================
-def _row_spec(sub):
-    return pl.BlockSpec((sub, LANES), lambda i: (i, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _ckpt_spec(n_seg, sub):
-    return pl.BlockSpec((n_seg, sub, LANES), lambda i: (0, i, 0),
-                        memory_space=pltpu.VMEM)
-
-
-def _full_spec():
-    return pl.BlockSpec(memory_space=pltpu.VMEM)
-
-
-@functools.lru_cache(maxsize=64)
-def _build(n_steps: int, has_disk: bool, n_sph: int, sub: int, seg: int,
-           interpret: bool, kerr: bool = False, power: float = 1.0):
-    """Build the custom-vjp'd core for one static configuration.
-
-    Core signature (all (R, 128) f32 unless noted):
-      core(x0,x1,x2,p0,p1,p2,E, lam0, st0:i32, obj0:i32,
-           scal:(NSCAL,), sph:(max(n_sph,1)*4,))
-      -> (x0',x1',x2',p0',p1',p2', lam', st', obj')
-    """
-    n_seg = max(1, -(-n_steps // seg))
-    n_sph_pad = max(n_sph, 1)
-
-    def f32_out(r):
-        return jax.ShapeDtypeStruct((r, LANES), jnp.float32)
-
-    def i32_out(r):
-        return jax.ShapeDtypeStruct((r, LANES), jnp.int32)
-
-    scal_spec = pl.BlockSpec(memory_space=pltpu.VMEM)
-    common = dict(interpret=interpret)
-
-    def fwd_fast(*args):
-        scal, sph = args[10], args[11]
-        comps = args[:10]
-        r = comps[0].shape[0]
-        tiles = r // sub
-        kern = functools.partial(
-            _fwd_fast_kernel, n_steps=n_steps, has_disk=has_disk,
-            n_sph=n_sph, kerr=kerr, power=power)
-        outs = pl.pallas_call(
-            kern,
-            grid=(tiles,),
-            in_specs=[scal_spec, scal_spec] + [_row_spec(sub)] * 10,
-            out_specs=[_row_spec(sub)] * 9,
-            out_shape=[f32_out(r)] * 7 + [i32_out(r)] * 2,
-            **common,
-        )(scal, sph, *comps)
-        return tuple(outs)
-
-    def fwd_ckpt(*args):
-        scal, sph = args[10], args[11]
-        comps = args[:10]
-        r = comps[0].shape[0]
-        tiles = r // sub
-        kern = functools.partial(
-            _fwd_ckpt_kernel, n_steps=n_steps, has_disk=has_disk,
-            n_sph=n_sph, seg=seg, kerr=kerr, power=power)
-        ck_f = jax.ShapeDtypeStruct((n_seg, r, LANES), jnp.float32)
-        ck_i = jax.ShapeDtypeStruct((n_seg, r, LANES), jnp.int32)
-        outs = pl.pallas_call(
-            kern,
-            grid=(tiles,),
-            in_specs=[scal_spec, scal_spec] + [_row_spec(sub)] * 10,
-            out_specs=[_row_spec(sub)] * 9 + [_ckpt_spec(n_seg, sub)] * 8,
-            out_shape=[f32_out(r)] * 7 + [i32_out(r)] * 2
-            + [ck_f] * 7 + [ck_i],
-            **common,
-        )(scal, sph, *comps)
-        return tuple(outs[:9]), tuple(outs[9:])
-
-    def bwd_call(scal, sph, ckpts, E, obj0, gx):
-        r = E.shape[0]
-        tiles = r // sub
-        kern = functools.partial(
-            _bwd_kernel, n_steps=n_steps, has_disk=has_disk,
-            n_sph=n_sph, seg=seg, kerr=kerr, power=power)
-        outs = pl.pallas_call(
-            kern,
-            grid=(tiles,),
-            in_specs=[scal_spec, scal_spec]
-            + [_ckpt_spec(n_seg, sub)] * 8
-            + [_row_spec(sub)] * 2
-            + [_row_spec(sub)] * 6,
-            out_specs=[_row_spec(sub)] * 7 + [
-                pl.BlockSpec((1, NSCAL), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((n_sph_pad, 4), lambda i: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_shape=[f32_out(r)] * 7 + [
-                jax.ShapeDtypeStruct((1, NSCAL), jnp.float32),
-                jax.ShapeDtypeStruct((n_sph_pad, 4), jnp.float32),
-            ],
-            scratch_shapes=[pltpu.VMEM((seg, sub, LANES), jnp.float32)] * 7
-            + [pltpu.VMEM((seg, sub, LANES), jnp.int32)],
-            **common,
-        )(scal, sph, *ckpts[:8], E, obj0, *gx)
-        return outs
-
-    @jax.custom_vjp
-    def core(x0, x1, x2, p0, p1, p2, E, lam0, st0, obj0, scal, sph):
-        return fwd_fast(x0, x1, x2, p0, p1, p2, E, lam0, st0, obj0,
-                        scal, sph)
-
-    def core_fwd(x0, x1, x2, p0, p1, p2, E, lam0, st0, obj0, scal, sph):
-        outs, ckpts = fwd_ckpt(x0, x1, x2, p0, p1, p2, E, lam0, st0, obj0,
-                               scal, sph)
-        return outs, (ckpts, E, obj0, scal, sph)
-
-    def core_bwd(res, g):
-        import numpy as np
-        ckpts, E, obj0, scal, sph = res
-        gx = g[:6]  # cotangents of (x', p'); lam'/st'/obj' are non-diff
-        outs = bwd_call(scal, sph, ckpts, E, obj0, gx)
-        bx = outs[:6]
-        bE = outs[6]
-        bscal = outs[7]
-        bsph = outs[8]
-        zeros_lam = jnp.zeros_like(E)
-        zi = np.zeros(obj0.shape, jax.dtypes.float0)
-        return (*bx, bE, zeros_lam, zi, zi, bscal, bsph)
-
-    core.defvjp(core_fwd, core_bwd)
-    return core
-
-
-# =============================================================================
-# Public entry: RayState in/out, padding, fallbacks.
-# =============================================================================
-def integrate_pallas(env, s0, cfg, *, sub: int | None = None,
-                     seg: int | None = None, interpret: bool = False):
-    """Pallas twin of integrate.integrate_fixed: same env/state/config.
-
-    Any batch shape (leading dims are flattened and restored).
-    Schwarzschild only (env.spin None).  Differentiable w.r.t. x, p, E,
-    mass and sphere geometry via the checkpointed-adjoint backward kernel.
-    """
-    batch = s0.E.shape
-    if len(batch) != 1:
-        flat = states.RayState(
-            x=s0.x.reshape(-1, 3), p=s0.p.reshape(-1, 3),
-            E=s0.E.reshape(-1), lam=s0.lam.reshape(-1),
-            status=s0.status.reshape(-1), hit_obj=s0.hit_obj.reshape(-1))
-        out = integrate_pallas(env, flat, cfg, sub=sub, seg=seg,
-                               interpret=interpret)
-        return states.RayState(
-            x=out.x.reshape(batch + (3,)), p=out.p.reshape(batch + (3,)),
-            E=s0.E, lam=out.lam.reshape(batch),
-            status=out.status.reshape(batch),
-            hit_obj=out.hit_obj.reshape(batch))
-    n = s0.E.shape[0]
-    if seg is None:
-        # Sweep on v5e (112-step flagship): seg=16 edges out 32 (smaller
-        # stage tape, better VMEM locality in the backward sweep) and both
-        # beat 8 (checkpoint-write overhead) -- grow past 16 only for very
-        # deep integrations to bound the checkpoint count.
-        seg = 16
-        while seg * seg < cfg.n_steps:
-            seg *= 2
-    if sub is None:
-        # Widest tile whose backward working set -- the seg-step stage tape
-        # plus all n_seg checkpoints plus I/O rows, 8 f32 components each --
-        # fits the ~12 MB VMEM budget (sweep on v5e: sub=64 beats 32 by
-        # ~15% at 152 steps; 128 fails to compile).  Kerr's adjoint
-        # residuals (even the one-stage-deep _step_adjoint ones, with
-        # the double-buffered checkpoint blocks on top) overflow the 16 MB
-        # scoped-VMEM limit at sub=64, so Kerr stays at sub=32.
-        n_seg_est = -(-cfg.n_steps // seg)
-        comp = 16 if env.spin is not None else 8
-        sub = 16
-        for cand in (64, 32):
-            if (seg + n_seg_est + 6) * cand * LANES * 4 * comp <= 12 * 2**20:
-                sub = cand
-                break
-    tile = sub * LANES
-    pad = (-n) % tile
-    npad = n + pad
-
-    def pad_to(v, fill=0.0):
-        if pad:
-            v = jnp.concatenate(
-                [v, jnp.full((pad,) + v.shape[1:], fill, v.dtype)])
-        return v
-
-    # Padding rays are pre-terminated (ERROR status) so they cost nothing.
-    # They are placed FAR from the hole (not at the origin): the adjoint
-    # evaluates step jacobians even for frozen rays, and near r = 0 the
-    # metric's higher derivatives overflow f32 -- 0 * inf = NaN would then
-    # poison the shared-parameter cotangents.
-    comps = [pad_to(s0.x[:, 0], 1e3), pad_to(s0.x[:, 1]),
-             pad_to(s0.x[:, 2]),
-             pad_to(s0.p[:, 0]), pad_to(s0.p[:, 1]), pad_to(s0.p[:, 2]),
-             pad_to(s0.E, 1.0), pad_to(s0.lam)]
-    st0 = pad_to(s0.status, states.ERROR)
-    obj0 = pad_to(s0.hit_obj, -1)
-    rows = npad // LANES
-    comps = [c.reshape(rows, LANES) for c in comps]
-    st0 = st0.reshape(rows, LANES)
-    obj0 = obj0.reshape(rows, LANES)
-
-    # --- cost-coherent tile ordering (see IntegratorConfig.tile_order) ----
-    # Key: squared angular momentum |x cross p|^2 ~ (impact parameter)^2 --
-    # shadow rays (small b) capture in a few steps, photon-ring grazers
-    # (b ~ 3 sqrt(3) M) run longest, far-field rays escape mid-cost.  Rows
-    # of 128 consecutive rays are image-coherent, so a per-row max key
-    # clusters whole tiles by cost and the in-kernel chunk/segment skipping
-    # actually fires.  Row-granular gathers are ~dozens of big rows -- cheap
-    # and cheaply transposed -- unlike a per-ray permute (serial gather).
-    reorder = cfg.tile_order == "cost" and rows > 2 * sub
-    if reorder:
-        x0f, x1f, x2f, p0f, p1f, p2f = comps[:6]
-        cx = x1f * p2f - x2f * p1f
-        cy = x2f * p0f - x0f * p2f
-        cz = x0f * p1f - x1f * p0f
-        key = jnp.max(cx * cx + cy * cy + cz * cz, axis=1)
-        order = jnp.argsort(lax.stop_gradient(key))
-        # inverse permutation via scatter (a second argsort costs ~1 ms)
-        inv_order = jnp.zeros_like(order).at[order].set(
-            jnp.arange(rows, dtype=order.dtype), unique_indices=True)
-        comps = [c[order] for c in comps]
-        st0 = st0[order]
-        obj0 = obj0[order]
-
+    row = pl.BlockSpec((block,), lambda i: (i,))
+    whole = lambda a: pl.BlockSpec(a.shape, lambda i: (0,))  # noqa: E731
+    f32 = jax.ShapeDtypeStruct((npad,), jnp.float32)
+    i32 = jax.ShapeDtypeStruct((npad,), jnp.int32)
+    out_shape = [f32] * 7 + [i32] * 2
+    out_specs = [row] * 9
+    if ckpt:
+        rows = _pow2(n_chunks)
+        out_shape += ([jax.ShapeDtypeStruct((rows, npad), jnp.float32)] * 7
+                      + [jax.ShapeDtypeStruct((rows, npad), jnp.int32)])
+        out_specs += [pl.BlockSpec((rows, block), lambda i: (0, i))] * 8
+    kern = functools.partial(
+        _kernel, n_steps=n_steps, chunk=chunk, has_disk=has_disk,
+        n_sph=n_sph, kerr=kerr, power=power)
+    return pl.pallas_call(
+        kern,
+        grid=(npad // block,),
+        in_specs=[whole(scal), whole(sph)] + [row] * 10,
+        out_specs=out_specs,
+        out_shape=out_shape,
+        compiler_params=pltriton.CompilerParams(num_warps=block // _WARP,
+                                                num_stages=1),
+        backend="triton",
+        interpret=interpret,
+        name="rk4_geodesic_fwd_ckpt" if ckpt else "rk4_geodesic_fwd",
+    )(scal, sph, *comps)
+
+
+def _scalars(env, cfg):
     r_ref = cfg.dt_boost_r_ref or 6.0 * env.mass
     boost = cfg.dt_boost if cfg.dt_boost > 1.0 else 1.0
-    scal = jnp.stack([
-        jnp.asarray(env.mass, jnp.float32),
-        jnp.asarray(cfg.dt, jnp.float32),
-        jnp.asarray(boost, jnp.float32),
-        jnp.asarray(r_ref, jnp.float32),
-        jnp.asarray(env.r_capture, jnp.float32),
-        jnp.asarray(env.r_escape, jnp.float32),
-        jnp.asarray(env.lam_max, jnp.float32),
-        jnp.asarray(env.disk.r_in if env.disk is not None else 0.0,
-                    jnp.float32),
-        jnp.asarray(env.disk.r_out if env.disk is not None else 0.0,
-                    jnp.float32),
-        jnp.asarray(0.0 if env.spin is None else env.spin, jnp.float32),
-    ])
+    vals = [env.mass, cfg.dt, boost, r_ref, env.r_capture, env.r_escape,
+            env.lam_max,
+            env.disk.r_in if env.disk is not None else 0.0,
+            env.disk.r_out if env.disk is not None else 0.0,
+            0.0 if env.spin is None else env.spin]
+    vals += [0.0] * (NSCAL - len(vals))
+    return jnp.stack([jnp.asarray(v, jnp.float32) for v in vals])
 
-    scal = scal.reshape(1, NSCAL)
 
+def _sphere_table(env):
     n_sph = 0 if env.spheres is None else int(env.spheres.center.shape[0])
-    if n_sph:
-        sph = jnp.concatenate(
-            [jnp.asarray(env.spheres.center, jnp.float32),
-             jnp.asarray(env.spheres.radius, jnp.float32)[:, None]],
-            axis=1)
-    else:
-        sph = jnp.zeros((1, 4), jnp.float32)
+    if not n_sph:
+        return 0, jnp.zeros((4,), jnp.float32)
+    tab = jnp.concatenate(
+        [jnp.asarray(env.spheres.center, jnp.float32),
+         jnp.asarray(env.spheres.radius, jnp.float32)[:, None]],
+        axis=1).reshape(-1)
+    pad = _pow2(4 * n_sph) - 4 * n_sph
+    return n_sph, jnp.pad(tab, (0, pad))
 
-    core = _build(cfg.n_steps, env.disk is not None, n_sph, sub, seg,
-                  interpret, kerr=env.spin is not None,
-                  power=float(cfg.dt_power))
-    x0c, x1c, x2c, p0c, p1c, p2c, Ec, lam0 = comps
-    ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj = core(
-        x0c, x1c, x2c, p0c, p1c, p2c, Ec, lam0, st0, obj0, scal, sph)
-    if reorder:
-        (ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj) = (
-            o[inv_order]
-            for o in (ox0, ox1, ox2, op0, op1, op2, olam, ost, oobj))
 
-    x = jnp.stack([ox0.reshape(-1)[:n], ox1.reshape(-1)[:n],
-                   ox2.reshape(-1)[:n]], axis=-1)
-    p = jnp.stack([op0.reshape(-1)[:n], op1.reshape(-1)[:n],
-                   op2.reshape(-1)[:n]], axis=-1)
-    return states.RayState(
-        x=x, p=p, E=s0.E, lam=olam.reshape(-1)[:n],
-        status=ost.reshape(-1)[:n], hit_obj=oobj.reshape(-1)[:n])
+def _forward(env, s0, cfg, block, interpret, ckpt):
+    """Run the kernel on a flat (N,) batch.  Returns the final RayState and,
+    with ``ckpt``, the RayState before every remat segment (leading axis
+    n_seg, in ``integrate_fixed``'s segmentation; E and hit_obj are
+    copies -- the backward pass reads neither)."""
+    n = s0.E.shape[0]
+    seg = _segments(cfg)[0]
+    chunk = seg if ckpt else min(16, cfg.n_steps)
+    pad = (-n) % block
+    npad = n + pad
+
+    def pad_to(v, fill=0.0):
+        v = v.astype(jnp.int32 if v.dtype == jnp.int32 else jnp.float32)
+        return jnp.pad(v, (0, pad), constant_values=fill) if pad else v
+
+    # Padding rays are pre-terminated (ERROR status) so they cost nothing;
+    # they sit far from the hole so no step of theirs could ever overflow.
+    comps = [pad_to(s0.x[:, 0], 1e3), pad_to(s0.x[:, 1]),
+             pad_to(s0.x[:, 2]), pad_to(s0.p[:, 0]), pad_to(s0.p[:, 1]),
+             pad_to(s0.p[:, 2]), pad_to(s0.E, 1.0), pad_to(s0.lam),
+             pad_to(s0.status, states.ERROR), pad_to(s0.hit_obj, -1)]
+
+    n_sph, sph = _sphere_table(env)
+    outs = _call(comps, _scalars(env, cfg), sph, n_steps=cfg.n_steps,
+                 chunk=chunk, has_disk=env.disk is not None, n_sph=n_sph,
+                 kerr=env.spin is not None, power=float(cfg.dt_power),
+                 block=block, ckpt=ckpt, interpret=interpret)
+
+    def state(o, E, hit_obj):
+        return states.RayState(
+            x=jnp.stack(o[0:3], -1).astype(s0.x.dtype),
+            p=jnp.stack(o[3:6], -1).astype(s0.p.dtype),
+            E=E, lam=o[6].astype(s0.lam.dtype), status=o[7],
+            hit_obj=hit_obj)
+
+    out = [o[:n] for o in outs[:9]]
+    final = state(out, s0.E, out[8])
+    if not ckpt:
+        return final, None
+    n_seg = -(-cfg.n_steps // seg)
+    ck = [o[:n_seg, :n] for o in outs[9:]]
+    E_b = jnp.broadcast_to(s0.E, (n_seg, n))
+    obj_b = jnp.broadcast_to(s0.hit_obj, (n_seg, n))
+    return final, state(ck, E_b, obj_b)
+
+
+# =============================================================================
+# custom_vjp: kernel forward, XLA segment-adjoint backward.
+# =============================================================================
+def _segment(env, cfg, s, length):
+    s, _ = lax.scan(lambda c, _: (_fixed_step(env, cfg, c), None), s, None,
+                    length=length)
+    return s
+
+
+@functools.partial(jax.custom_vjp, nondiff_argnums=(2, 3, 4))
+def _integrate(env, s0, cfg, block, interpret):
+    return _forward(env, s0, cfg, block, interpret, False)[0]
+
+
+def _integrate_fwd(env, s0, cfg, block, interpret):
+    out, ck = _forward(env, s0, cfg, block, interpret, True)
+    return out, (env, ck)
+
+
+def _integrate_bwd(cfg, block, interpret, res, g):
+    """Reverse sweep over the kernel's segment checkpoints: each segment's
+    vjp is XLA's autodiff of the same RK4 steps ``integrate_fixed`` runs,
+    so the result is its exact discrete adjoint."""
+    env, ck = res
+    seg, n_full, rem = _segments(cfg)
+    g_env = jax.tree.map(jnp.zeros_like, env)
+
+    def seg_vjp(carry, s_in, length):
+        g_env, g_s = carry
+        _, vjp = jax.vjp(lambda e, s: _segment(e, cfg, s, length), env, s_in)
+        ge, g_s = vjp(g_s)
+        return jax.tree.map(jnp.add, g_env, ge), g_s
+
+    carry = (g_env, g)
+    if rem:
+        carry = seg_vjp(carry, jax.tree.map(lambda a: a[n_full], ck), rem)
+    if n_full:
+        carry, _ = lax.scan(
+            lambda c, s_in: (seg_vjp(c, s_in, seg), None), carry,
+            jax.tree.map(lambda a: a[:n_full], ck), reverse=True)
+    return carry
+
+
+_integrate.defvjp(_integrate_fwd, _integrate_bwd)
+
+
+def integrate_pallas(env, s0, cfg, *, block: int | None = None,
+                     interpret: bool = False):
+    """Kernel twin of integrate.integrate_fixed: same env/state/config.
+
+    Any batch shape (leading dims are flattened and restored).  Schwarzschild
+    or Kerr, with or without disk and spheres.  Differentiable w.r.t. x, p,
+    E and every float of ``env`` (mass, spin, sphere geometry, ...).
+    ``block`` rays per program (a power of two >= 32; one ray per thread).
+    ``interpret=True`` runs the kernel on the CPU (tests only)."""
+    block = block or _DEFAULT_BLOCK
+    if block < _WARP or block & (block - 1):
+        raise ValueError(f"block must be a power of two >= {_WARP}, "
+                         f"got {block}")
+    batch = s0.E.shape
+    if len(batch) != 1:
+        flat = jax.tree.map(
+            lambda a: a.reshape((-1,) + a.shape[len(batch):]), s0)
+        out = integrate_pallas(env, flat, cfg, block=block,
+                               interpret=interpret)
+        return jax.tree.map(
+            lambda a: a.reshape(batch + a.shape[1:]), out)
+    return _integrate(env, s0, cfg, block, interpret)

@@ -28,12 +28,20 @@ renderer-level entry point.
 
 from __future__ import annotations
 
+import functools
+
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 Array = jax.Array
 
 _EPS = 1e-12
+# Geometric products in full f32: a GPU may otherwise run f32 products in
+# TF32 (~3 decimal digits), coarser than one flagship pixel.
+_HI = lax.Precision.HIGHEST
+_dot = functools.partial(jnp.matmul, precision=_HI)
+_einsum = functools.partial(jnp.einsum, precision=_HI)
 
 
 def _unit(v):
@@ -90,8 +98,8 @@ def polarization_rotation(x0: Array, d0: Array, d1: Array) -> Array:
 def _ft_from_orthogonality(g, k4, f3):
     """f^t making (f^t, f3) orthogonal to k4 under metric g: f.k = f^mu k_mu
     = 0  =>  f^t = -(f^i k_i)/k_t with k_mu = g_{mu nu} k^nu."""
-    k_low = g @ k4
-    return -(f3 @ k_low[1:]) / k_low[0]
+    k_low = _dot(g, k4)
+    return -(_dot(f3, k_low[1:])) / k_low[0]
 
 
 def ks_directional_christoffel(mass, a):
@@ -122,16 +130,16 @@ def ks_directional_christoffel(mass, a):
         dH, J3 = jax.jacfwd(lambda q: ks_scalars(q, mass, a))(x3)
         k0, k3v = k4[0], k4[1:]
         v0, v3v = v4[0], v4[1:]
-        u = k0 + l3 @ k3v            # l_mu k^mu
-        w = v0 + l3 @ v3v
-        Hk = dH @ k3v
-        Hv = dH @ v3v
-        a3 = J3 @ k3v                # a_i = l_{i,j} k^j  (time parts 0)
-        b3 = J3 @ v3v
-        c3 = J3.T @ k3v              # c_j = l_{i,j} k^i
-        d3v = J3.T @ v3v
-        va = v3v @ a3
-        kb = k3v @ b3
+        u = k0 + _dot(l3, k3v)            # l_mu k^mu
+        w = v0 + _dot(l3, v3v)
+        Hk = _dot(dH, k3v)
+        Hv = _dot(dH, v3v)
+        a3 = _dot(J3, k3v)                # a_i = l_{i,j} k^j  (time parts 0)
+        b3 = _dot(J3, v3v)
+        c3 = _dot(J3.T, k3v)              # c_j = l_{i,j} k^i
+        d3v = _dot(J3.T, v3v)
+        va = _dot(v3v, a3)
+        kb = _dot(k3v, b3)
         # V_rho = 1/2 k^mu v^nu (d_mu g_{nu rho} + d_nu g_{rho mu}
         #                        - d_rho g_{mu nu})
         S = Hk * w + Hv * u + H * (va + kb)
@@ -140,7 +148,7 @@ def ks_directional_christoffel(mass, a):
               - H * (w * c3 + u * d3v))
         # raise with g^{s rho} = eta^{s rho} - 2 H l^s l^rho,
         # l^rho = (-1, l3)
-        lv = -V0 + l3 @ V3
+        lv = -V0 + _dot(l3, V3)
         g0 = -V0 - 2.0 * H * (-1.0) * lv
         g3 = V3 - 2.0 * H * lv * l3
         return jnp.concatenate([g0[None], g3])
@@ -186,7 +194,7 @@ def transport_polarization_ode(metric, x3: Array, d3: Array, f3: Array, *,
         g0 = metric.g(x4)
         ft = _ft_from_orthogonality(g0, k4, f3i)
         f4 = jnp.concatenate([ft[None], f3i])
-        gff0 = jnp.einsum("mn,m,n->", g0, f4, f4)
+        gff0 = _einsum("mn,m,n->", g0, f4, f4)
 
         if metric.name in ("kerr_ks", "schwarzschild_ks"):
             # Kerr-Schild fast path: analytic directional contraction
@@ -200,8 +208,8 @@ def transport_polarization_ode(metric, x3: Array, d3: Array, f3: Array, *,
         else:
             def rhs(x4, k4, f4):
                 gam = metric.christoffel(x4)
-                dk = -jnp.einsum("smn,m,n->s", gam, k4, k4)
-                df = -jnp.einsum("smn,m,n->s", gam, k4, f4)
+                dk = -_einsum("smn,m,n->s", gam, k4, k4)
+                df = -_einsum("smn,m,n->s", gam, k4, f4)
                 return k4, dk, df
 
         def step(carry, _):
@@ -230,12 +238,12 @@ def transport_polarization_ode(metric, x3: Array, d3: Array, f3: Array, *,
             step, (x4, k4, f4, jnp.asarray(True)), None, length=n_steps)
 
         g1 = metric.g(x4)
-        fk = jnp.einsum("mn,m,n->", g1, f4, k4)
-        gff = jnp.einsum("mn,m,n->", g1, f4, f4)
+        fk = _einsum("mn,m,n->", g1, f4, k4)
+        gff = _einsum("mn,m,n->", g1, f4, f4)
         # gauge fix f -> f - (f^t/k^t) k: purely spatial observable
         f_obs = f4[1:] - (f4[0] / k4[0]) * k4[1:]
         d_out = _unit(k4[1:])
-        f_obs = f_obs - (f_obs @ d_out) * d_out
+        f_obs = f_obs - (_dot(f_obs, d_out)) * d_out
         return (_unit(f_obs), d_out, x4[1:],
                 jnp.abs(fk), jnp.abs(gff - gff0), alive)
 

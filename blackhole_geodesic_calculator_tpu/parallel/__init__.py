@@ -1,7 +1,7 @@
 """Distributed/parallel layer: device meshes, sharded rendering, training.
 
 The reference has no distributed runtime (SURVEY.md §2.2); this package is
-the TPU-native replacement: jax.sharding meshes, ray-sharded SPMD rendering
+the replacement: jax.sharding meshes, ray-sharded SPMD rendering
 with load-balancing shuffle, sample-axis parallel multisampling, and
 gradient-all-reduced training steps.
 """

@@ -3,8 +3,8 @@
 The reference's cluster story is file-level frame farming on Snellius with
 no in-repo code ("V Run on snellius / V Parallelization",
 /root/reference/README.md:238-240) and no failure handling beyond per-ray
-error colors (LimitedRelativisticRenderEngine.py:311-314).  The TPU-native
-equivalents here:
+error colors (LimitedRelativisticRenderEngine.py:311-314).  The equivalents
+here:
 
 * ``init_distributed`` -- ``jax.distributed.initialize`` wrapper so the same
   script runs single-host or on an N-host pod slice (collectives ride
@@ -37,7 +37,7 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> bool:
     """Initialize multi-host JAX; no-op (returns False) when single-host.
 
-    With no arguments, relies on the cluster environment (TPU pod metadata /
+    With no arguments, relies on the cluster environment (e.g.
     JAX_COORDINATOR_ADDRESS) the way ``jax.distributed.initialize`` does.
     Safe to call twice.
     """

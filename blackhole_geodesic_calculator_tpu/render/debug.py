@@ -4,7 +4,7 @@ The reference accumulates ``debug_string`` lines of
 ``(loc, dir, end_loc, end_dir)`` for every ray inside the ``mark_*`` crop
 rectangle and prints them after the render
 (/root/reference/raytracer/LimitedRelativisticRenderEngine.py:68,123-141,
-304-305).  TPU-native version: one batched probe render over the marked
+304-305).  Here: one batched probe render over the marked
 pixels returning a dict of arrays (and the same human-readable string),
 cheap enough to run interactively because the crop is tiny.
 """

@@ -1,7 +1,7 @@
 """Gen-1 "Limited" renderer: curved spacetime only inside a sphere of
 influence, flat-space analytic ray casting outside.
 
-Faithful TPU-native reproduction of ``LimitedRelativisticRenderEngine``
+Faithful batched reproduction of ``LimitedRelativisticRenderEngine``
 (reference LimitedRelativisticRenderEngine.py:165-438): Blender's BVH
 ``scene.ray_cast`` becomes batched analytic sphere intersection, the
 ``"isBH"``-tagged sphere hand-off becomes a masked batched geodesic solve
@@ -47,10 +47,11 @@ from .renderer import RenderConfig
 
 Array = jax.Array
 
-RED = jnp.asarray([1.0, 0.0, 0.0])
-BLUE = jnp.asarray([0.0, 0.0, 1.0])
-GREEN = jnp.asarray([0.0, 1.0, 0.0])
-BLACK = jnp.zeros(3)
+# numpy constants: importing the package must not initialize a backend
+RED = np.asarray([1.0, 0.0, 0.0], np.float32)
+BLUE = np.asarray([0.0, 0.0, 1.0], np.float32)
+GREEN = np.asarray([0.0, 1.0, 0.0], np.float32)
+BLACK = np.zeros(3, np.float32)
 
 
 @dataclasses.dataclass(frozen=True)

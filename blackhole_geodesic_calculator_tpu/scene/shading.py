@@ -6,13 +6,14 @@ Lambert, miss -> equirect background, integrator error -> red debug pixel
 (/root/reference/raytracer/RelativisticRenderEngine.py:239-246,
 LimitedRelativisticRenderEngine.py:259-438).  Here each shader runs densely
 over the batch and a status-mask select composes the final color -- no
-divergence, MXU/VPU friendly, fully differentiable.
+divergence, fully differentiable.
 """
 
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 from ..ops import states
 from ..ops.states import RayState
@@ -22,8 +23,9 @@ from .texture import sample_bpy, sample_equirect, sphere_uv_bpy, safe_arccos
 Array = jax.Array
 
 # Reference rogue-ray color coding (LimitedRelativisticRenderEngine.py:311-314)
-ERROR_COLOR = jnp.asarray([1.0, 0.0, 0.0])
-BLACK = jnp.zeros(3)
+# numpy constants: importing the package must not initialize a backend
+ERROR_COLOR = np.asarray([1.0, 0.0, 0.0], np.float32)
+BLACK = np.zeros(3, np.float32)
 
 
 def shade_background(scene: Scene, directions: Array) -> Array:

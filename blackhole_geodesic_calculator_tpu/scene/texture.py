@@ -65,19 +65,20 @@ def _sample_corners(tex, xi0, xi1, yi0, yi1):
 def sample_bpy(tex: Array, x: Array, y: Array) -> Array:
     """Bilinear sample at bpy-style coords; tex (H, W, C), x/y (...,).
 
-    Custom VJP, for two measured TPU reasons (1M-ray render, v5e):
+    Custom VJP, written for an earlier accelerator whose scatter and
+    gather units were slow; it still runs on the GPU and awaits
+    measurement there against plain autodiff:
 
     * The autodiff transpose of the 4 corner gathers is a scatter-add with
-      duplicate indices over 4N updates; XLA-TPU lowers it as a full sort
-      plus a serial segmented reduce (~66 ms).  The handwritten backward
+      duplicate indices over 4N updates.  The handwritten backward
       exploits the FIXED 2x2 footprint: all four corners share the base
       cell (y0, x0), so ONE N-update scatter of a 12-channel payload
       (4 corners x C) lands everything, and the corner offsets are resolved
       densely afterwards -- a roll in x (wrap = the mod-W corner) and a
-      row fold in y (the clip-to-edge corner).  ~13 ms -> ~5x faster,
-      bit-identical modulo f32 addition order.
+      row fold in y (the clip-to-edge corner); bit-identical modulo f32
+      addition order.
     * The corner colors are saved as residuals so the backward re-issues no
-      gathers (TPU gathers at (N, 3) granularity cost ~6 ms each).
+      gathers.
     """
     out, _ = _sample_bpy_fwd(tex, x, y)
     return out
@@ -111,10 +112,8 @@ def _sample_bpy_fwd(tex, x, y):
     if _use_quad(tex):
         # Quad texture: row p holds the full 2x2 footprint of base row
         # y0u = p - 1 (rows clipped to the edge, +1 column wrapped), so the
-        # four corner colors arrive in ONE gather row of 4C floats.  TPU
-        # gathers are serial per gathered row (~6 ns each, measured), so one
-        # 12-float row beats four 3-float rows 4x; the quad build itself is
-        # dense and cheap.
+        # four corner colors arrive in ONE gather row of 4C floats instead
+        # of four rows of C; the quad build itself is dense and cheap.
         ra = jnp.concatenate([tex[:1], tex], axis=0)      # clip(p-1, 0, h-1)
         rb = jnp.concatenate([tex, tex[-1:]], axis=0)     # clip(p,   0, h-1)
         rolled = lambda t: jnp.roll(t, -1, axis=1)  # 2.4x the sliced concat
@@ -142,15 +141,6 @@ def _sample_bpy_fwd(tex, x, y):
 
 
 def _sample_bpy_bwd(res, g):
-    # Measured note (v5e, 1024^2 flagship): the dtex scatter below costs
-    # ~17 ms INSIDE the full render backward (35% of the step) although the
-    # identical scatter measures 0.05 ms standalone at the same shapes,
-    # index distribution and duplication -- the cost is the surrounding
-    # graph (layout/scheduling interaction on this stack), not the
-    # algorithm.  Alternatives measured in situ: optimization_barrier'd
-    # flat branch 51.0 ms (vs 51.8 baseline), sort+cumsum segment reduction
-    # 71.4 ms (worse).  Kept as the best-known formulation; grads w.r.t.
-    # ONLY non-texture params run at 33.6 ms because XLA DCEs this branch.
     tex, c00, c01, c10, c11, tx, ty, y0u, xi0 = res
     h, w, c = tex.shape
     dtype = tex.dtype

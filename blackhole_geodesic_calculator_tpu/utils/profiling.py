@@ -69,7 +69,8 @@ def op_table(logdir: str, top: int = 20, repeats: int = 1):
     Returns ``[(name, total_ms, count), ...]`` sorted by time, summed over
     the device-side complete events and divided by ``repeats`` (the number
     of identical steps traced).  Device process/threads are identified from
-    the trace metadata, so this works on TPU and on the CPU backend alike.
+    the trace metadata, so this works on the GPU and on the CPU backend
+    alike.
     """
     events = _load_trace_events(logdir)
     proc_names = {}
@@ -77,8 +78,7 @@ def op_table(logdir: str, top: int = 20, repeats: int = 1):
         if e.get("ph") == "M" and e.get("name") == "process_name":
             proc_names[e["pid"]] = e["args"].get("name", "")
     device_pids = {pid for pid, name in proc_names.items()
-                   if "TPU" in name or "GPU" in name
-                   or "device" in name.lower()}
+                   if "GPU" in name or "device" in name.lower()}
     if not device_pids:
         # CPU backend: ops land on the host process, interleaved with
         # python-source spans -- keep XLA op events only
@@ -109,8 +109,6 @@ def profile_steps(fn, *args, repeats: int = 3, top: int = 20,
         for _ in range(repeats):
             out = fn(*args)
         jax.block_until_ready(out)
-        # force a sync through value fetch: block_until_ready alone does
-        # not drain some tunneled backends
         jax.tree.map(lambda a: a.block_until_ready(), out)
     rows = op_table(logdir, top=top, repeats=repeats)
     if own:
@@ -134,8 +132,7 @@ def _device_complete_events(events):
         if e.get("ph") == "M" and e.get("name") == "process_name":
             proc_names[e["pid"]] = e["args"].get("name", "")
     device_pids = {pid for pid, name in proc_names.items()
-                   if "TPU" in name or "GPU" in name
-                   or "device" in name.lower()}
+                   if "GPU" in name or "device" in name.lower()}
     if not device_pids:
         device_pids = set(proc_names)
     out = []

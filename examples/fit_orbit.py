@@ -6,8 +6,8 @@ The reference's flagship artifact is a 1024² × 100-frame × 5-spp orbit
 animation (/root/reference/README.md:8-9) -- forward-only.  This framework
 can run that camera BACKWARD: render N target frames of an orbit with a
 known (mass, phase, roll), then recover all three from pixels alone by
-gradient descent THROUGH the geodesic integrator (the checkpointed-adjoint
-Pallas kernel on TPU, the remat XLA scan on CPU), sharded over whatever
+gradient descent THROUGH the geodesic integrator (the RK4 kernel with its
+XLA segment adjoint on a GPU, the remat XLA scan on CPU), sharded over whatever
 device mesh is available.
 
 Two estimator tools make the fit converge to sub-percent where naive pixel

@@ -174,7 +174,7 @@ def main(argv=None):
     # ------------------------------------------------------------------
     # 4. Sharded rendering: the same program, SPMD over all devices.
     # On CPU run with XLA_FLAGS=--xla_force_host_platform_device_count=8
-    # to see a virtual mesh; on a TPU slice this is the production path.
+    # to see a virtual mesh; on several GPUs this is the production path.
     # ------------------------------------------------------------------
     from blackhole_geodesic_calculator_tpu.parallel import (
         make_mesh, render_image_sharded,

@@ -2,7 +2,7 @@
 
 Single-process versions of the multi-host paths (jax.process_count() == 1
 under the virtual CPU mesh); the retry logic is exercised with injected
-faults -- the TPU-native stand-in for the failure handling the reference
+faults -- the stand-in for the failure handling the reference
 lacks entirely (SURVEY.md §5)."""
 
 import numpy as np

@@ -90,7 +90,7 @@ def test_flat_space_straight_lines():
 
 
 def test_oracle_vs_jax_integrator_deflection():
-    """The f32 fixed-step TPU path agrees with the f64 adaptive oracle on
+    """The f32 fixed-step device path agrees with the f64 adaptive oracle on
     escape direction (the observable that sets every background pixel)."""
     n = 33
     b = np.linspace(2.75, 10.0, n)  # above the critical b = 3*sqrt(3)*M

@@ -262,7 +262,7 @@ class TestRendererIntegration:
 
 class TestPrecision:
     def test_f32_vs_bf16_paths_close_not_identical(self):
-        """The precision field selects the MXU path: f32 (accurate default)
+        """The precision field selects the matmul path: f32 (accurate default)
         and bf16 (preview) must agree to bf16 rounding but differ in bits
         (proving both paths are real), and the static field must re-trace
         under jit."""
